@@ -1,0 +1,493 @@
+"""Chip smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from easygaussiansplatting_tpu_torch/csrc,
+holds each against its plain PyTorch version on the card at the shapes of the
+forward render, then serves a few renders through the port's entry point at
+the configuration bench.py times (65,536 gaussians, SH degree 3, 979x546,
+max_patches 557,056, max_rows 229,376), checks them against the all-plain
+path, and runs the render CLI once. Any failed check exits non-zero.
+
+Output: per-phase lines, then the card's name and power limit as nvidia-smi
+gives them, then on its own line a JSON object {"kernels": [...]} (per
+kernel: launches on the render path, max abs error against the plain
+version, kernel / plain / library times in ms, the data-sheet bound), and
+last {"ok": true, "device": {...}}.
+
+Needs torch with CUDA and nvcc (CUDA_HOME, /usr/local/cuda or PATH); exits
+non-zero without a CUDA device. Imports nothing of JAX.
+"""
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from easygaussiansplatting_tpu_torch.data.synthetic import make_synthetic_scene
+from easygaussiansplatting_tpu_torch.models.convert import gaussians_from_numpy
+from easygaussiansplatting_tpu_torch.ops import stages
+from easygaussiansplatting_tpu_torch.ops.binning import bin_gaussians
+from easygaussiansplatting_tpu_torch.ops.kernels import _build, preprocess, rasterize, scan
+from easygaussiansplatting_tpu_torch.ops.rasterize import render
+
+ROOT = Path(__file__).resolve().parent
+
+# The configuration bench.py times.
+WIDTH, HEIGHT = 979, 546
+N_GAUSSIANS = 65536
+SH_COLS = 48  # degree 3
+MAX_PATCHES = 557056
+MAX_ROWS = 229376
+N_VIEWS = 4
+SEED = 0
+
+# Published H100 SXM peaks (NVIDIA data sheet): device memory and FP32
+# outside the tensor cores. INT32 adds are counted at half the FP32 rate
+# (64 INT32 lanes per SM against 128 FP32); exp at 16 MUFU results per SM
+# per clock.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+INT32_OP_PER_S = FP32_FLOP_PER_S / 2
+MUFU_PER_SM_CLK = 16
+
+# Tolerances, with their reasons:
+# K1 runs the plain chain's expressions in the same order with multiply-add
+# contraction off; what is left is the SH basis products and division
+# rounding, far below 2e-5 (abs or rel).
+K1_TOL = 2e-5
+# the extents are ceil()s of a float; one ulp moves one only where the
+# pre-ceil value sits on an integer
+EXTENT_EDGE = 1e-4
+# K3 int32 is exact; f32 sums in another order than torch.cumsum
+K3_F32_RTOL = 1e-5
+# K4 multiplies tau sequentially where the plain version takes chunked
+# cumulative products; a threshold decision (alpha' >= 0.002, tau >= 1e-4)
+# can flip on a pixel where a value sits on it
+K4_TOL = 1e-4
+K4_CONTRIB_MATCH = 0.9999
+SLICE_TOL = 1e-4
+SLICE_MAX_BAD_SHARE = 1e-3
+
+
+# device kernel names of each port kernel (csrc/)
+K1_NAMES = ("preprocess_fwd_kernel",)
+K3_NAMES = ("scan_block_sums", "scan_block_offsets", "scan_apply")
+K4_NAMES = ("rasterize_fwd_kernel",)
+
+
+def require(cond, msg):
+    if not cond:
+        raise RuntimeError(f"FAILED: {msg}")
+
+
+def nvidia_smi(query):
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+FLUSH_KERNEL = "bitwise_not"  # the L2 flush's kernel, left out of device times
+
+
+def make_flush(device):
+    buf = torch.zeros(96 * 2**20 // 4, dtype=torch.int32, device=device)  # > 50 MB L2
+    return lambda: buf.bitwise_not_()
+
+
+def _kernel_events(prof):
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and FLUSH_KERNEL not in e.name]
+
+
+def short_name(name):
+    """A device kernel's name without its return type, namespaces, template
+    arguments and parameter list."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name.split("(")[0].split("<")[0].strip()
+    return name.split(" ")[-1].split("::")[-1][-60:]
+
+
+def event_ms(fn, clock_mhz, iters=20, warmup=3, flush=None):
+    """Mean time per call of fn() between CUDA events recorded around it,
+    with the L2 flushed (outside the events) before each call. A spin kernel
+    first holds the device long enough for the host to queue every call, so
+    the events time the device's work back to back, not the host's launch
+    cost; a call that synchronises inside still pays its host time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    if flush is not None:
+        flush()
+    torch.cuda.synchronize()
+    hold_s = min(2.0, 2.0 * iters * (time.perf_counter() - t0))
+    torch.cuda._sleep(int(hold_s * clock_mhz * 1e6))
+    marks = []
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in marks) / iters
+
+
+def call_ms(fn, iters=20, warmup=3):
+    """Mean time per call of fn() between CUDA events recorded around it,
+    one call at a time: device time plus whatever host work (Python, the
+    launch itself) the device waits on."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def timings(kern, plain, clock_mhz, flush, plain_iters=5, library=None):
+    """event_ms of the kernel, of its plain version and (where one exists) of
+    the library call, and the kernel's call_ms. The plain versions run few
+    iterations: a hundred launches each would fill the device's queue of
+    pending launches, and the host's pace would then enter the events."""
+    return {"ms": event_ms(kern, clock_mhz, flush=flush),
+            "plain_ms": event_ms(plain, clock_mhz, iters=plain_iters, warmup=1, flush=flush),
+            "library_ms": None if library is None else event_ms(library, clock_mhz, flush=flush),
+            "call_ms": call_ms(kern)}
+
+
+def scene_params(device, sh_random):
+    """The bench scene: 65,536 gaussians, 48 SH columns (DC from the scene;
+    the rest zero as bench.py has it, or random with ``sh_random``)."""
+    scene = make_synthetic_scene(seed=SEED, n_gaussians=N_GAUSSIANS, n_cams=N_VIEWS,
+                                 width=WIDTH, height=HEIGHT, log_scale_mean=-3.6)
+    shs = np.zeros((N_GAUSSIANS, SH_COLS), np.float32)
+    shs[:, :3] = scene["shs"]
+    if sh_random:
+        shs[:, 3:] = np.random.default_rng(SEED + 1).normal(size=(N_GAUSSIANS, SH_COLS - 3)) * 0.3
+    params = gaussians_from_numpy({**scene, "shs": shs}, device)
+    return params, scene["cameras"]
+
+
+def phase_k1(device, flush, clock_mhz, n_sm):
+    params, cams = scene_params(device, sh_random=True)
+    cam = cams[0]
+    lines = []
+    worst = 0.0
+    timing = None
+    for deg in (3, 0):
+        p = dict(params)
+        p["shs"] = params["shs"][:, :3 * (deg + 1) ** 2].contiguous()
+        args = (p["pws"], p["shs"], p["alphas"], p["scales"], p["rots"], cam)
+        got = preprocess.preprocess_fwd(*args, sh_degree=deg)
+        want = preprocess.preprocess_plain(*args, sh_degree=deg)
+        torch.cuda.synchronize()
+        diff = (got[:, :10] - want[:, :10]).abs()
+        bad = (diff > K1_TOL) & (diff > K1_TOL * want[:, :10].abs())
+        cov2d = stages.preprocess(*args, sh_degree=deg)["cov2ds"]
+        pre_ceil = 3.0 * torch.sqrt(torch.abs(cov2d[:, [0, 2]]))
+        near_int = (pre_ceil - torch.round(pre_ceil)).abs() < EXTENT_EDGE
+        ext_diff = got[:, 10:12] != want[:, 10:12]
+        n_bad_ext = int((ext_diff & ~near_int).sum())
+        err = float(diff.max())
+        worst = max(worst, err)
+        lines.append(f"K1 deg {deg}: max_abs_err {err:.3e}, float mismatches {int(bad.sum())}, "
+                     f"extent mismatches {int(ext_diff.sum())} ({int(near_int.sum())} pre-ceil "
+                     f"values within {EXTENT_EDGE} of an integer, {n_bad_ext} mismatches elsewhere)")
+        require(int(bad.sum()) == 0, f"K1 deg {deg} float outputs differ beyond {K1_TOL}")
+        require(n_bad_ext == 0, f"K1 deg {deg} extents differ away from integer edges")
+        if deg == 3:
+            timing = timings(lambda: preprocess.preprocess_fwd(*args, sh_degree=deg),
+                             lambda: preprocess.preprocess_plain(*args, sh_degree=deg),
+                             clock_mhz, flush)
+            n = p["pws"].shape[0]
+            nb = 3 * (deg + 1) ** 2
+            nbytes = n * 4 * (3 + nb + 1 + 3 + 4) + n * 4 * preprocess.TABLE_COLS
+            flops = n * (200 + 8 * (deg + 1) ** 2)  # stage math + SH basis and sums
+            timing.update(bound(nbytes, flops, 0, clock_mhz, n_sm))
+    return {"name": "K1 preprocess_fwd", "route": "cuda",
+            "source": "easygaussiansplatting_tpu_torch/csrc/preprocess.cu",
+            "replaces": "easygaussiansplatting_tpu/ops/pallas/preprocess.py:170",
+            "max_abs_err": worst, **timing}, lines
+
+
+def bound(nbytes, fp32_ops, exps, clock_mhz, n_sm, int_ops=0):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(fp32_ops / FP32_FLOP_PER_S, int_ops / INT32_OP_PER_S,
+                exps / (MUFU_PER_SM_CLK * n_sm * clock_mhz * 1e6))
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_k3(device, flush, clock_mhz, n_sm):
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    # the three row sets one render scans at the bench budgets, sparse marks
+    # like binning's, plus one float32 set
+    shapes = [(2, MAX_ROWS), (1, MAX_ROWS), (2, MAX_PATCHES)]
+    sets = []
+    for r, m in shapes:
+        x = torch.randint(-3, 4, (r, m), generator=gen, dtype=torch.int32)
+        x = torch.where(torch.rand((r, m), generator=gen) < 0.3, x, 0)
+        sets.append(x.to(device))
+    xf = torch.rand((2, MAX_PATCHES), generator=gen).to(device)
+    lines = []
+    for x in sets:
+        got = scan.multi_cumsum(x)
+        want = scan.multi_cumsum_plain(x)
+        n_bad = int((got != want).sum())
+        lines.append(f"K3 int32 {tuple(x.shape)}: mismatches {n_bad}")
+        require(n_bad == 0 and got.dtype == torch.int32, f"K3 int32 {tuple(x.shape)} differs")
+    got = scan.multi_cumsum(xf)
+    want = scan.multi_cumsum_plain(xf)
+    ref = torch.cumsum(xf.double(), dim=1)
+    cumabs = torch.cumsum(xf.double().abs(), dim=1)
+    err = (got.double() - want.double()).abs()
+    worst = float(err.max())
+    n_bad = int((err > K3_F32_RTOL * cumabs).sum())
+    lines.append(f"K3 f32 {tuple(xf.shape)}: max_abs_err vs the plain version {worst:.3e}, "
+                 f"beyond {K3_F32_RTOL}*cumsum|x|: {n_bad}; against float64 the kernel is off by "
+                 f"{float((got.double() - ref).abs().max()):.3e}, torch.cumsum by "
+                 f"{float((want.double() - ref).abs().max()):.3e}")
+    require(n_bad == 0, "K3 f32 differs beyond tolerance")
+    # one render's three calls: the times add up
+    timing = {}
+    for x in sets:
+        t = timings(lambda x=x: scan.multi_cumsum(x), lambda x=x: scan.multi_cumsum_plain(x),
+                    clock_mhz, flush, plain_iters=20,
+                    library=lambda x=x: torch.cumsum(x, dim=1, dtype=torch.int32))
+        timing = {k: timing.get(k, 0.0) + v for k, v in t.items()}
+    elems = sum(x.numel() for x in sets)
+    return {"name": "K3 multi_cumsum", "route": "cuda",
+            "source": "easygaussiansplatting_tpu_torch/csrc/scan.cu",
+            "replaces": "easygaussiansplatting_tpu/ops/pallas/scan.py:33",
+            "max_abs_err": worst, **timing,
+            **bound(elems * 8, 0, 0, clock_mhz, n_sm, int_ops=elems)}, lines
+
+
+def k4_pairs(binning, final_tau, contrib):
+    """(entry, pixel) pairs this data needs: a pixel that saturated stops at
+    its last contributor, any other one walks its whole tile list."""
+    gx = -(-WIDTH // 16)
+    ty = torch.arange(HEIGHT, device=contrib.device)[:, None] // 16
+    tx = torch.arange(WIDTH, device=contrib.device)[None, :] // 16
+    cnt = binning["tile_cnt"].long()[ty * gx + tx]
+    return int(torch.where(final_tau < 1e-4, contrib.long(), cnt).sum())
+
+
+def phase_k4(device, flush, clock_mhz, n_sm):
+    params, cams = scene_params(device, sh_random=False)
+    cam = cams[0]
+    pre = preprocess.fused_preprocess(params["pws"], params["shs"], params["alphas"],
+                                      params["scales"], params["rots"], cam)
+    b = bin_gaussians(pre["us"], pre["depths"], pre["areas"], pre["valid"], width=WIDTH,
+                      height=HEIGHT, max_patches=MAX_PATCHES, max_rows=MAX_ROWS,
+                      cinv2ds=pre["cinv2ds"], alphas=pre["alphas"])
+    table = pre["table"]
+    args = (table, b["patch_gsid"], b["tile_start"], b["tile_cnt"])
+    img, tau, cont = rasterize.rasterize_fwd(*args, width=WIDTH, height=HEIGHT)
+    img_p, tau_p, cont_p = rasterize.rasterize_plain(*args, width=WIDTH, height=HEIGHT)
+    torch.cuda.synchronize()
+    err_img = float((img - img_p).abs().max())
+    err_tau = float((tau - tau_p).abs().max())
+    n_cont_bad = int((cont != cont_p).sum())
+    n_pix = WIDTH * HEIGHT
+    lines = [f"K4 on view 0 ({int(b['total'])} patches): image max_abs_err {err_img:.3e}, "
+             f"final_tau max_abs_err {err_tau:.3e}, contrib mismatches {n_cont_bad} of {n_pix}"]
+    require(err_img <= K4_TOL and err_tau <= K4_TOL, "K4 image/tau differ beyond tolerance")
+    require(n_cont_bad <= (1 - K4_CONTRIB_MATCH) * n_pix, "K4 contrib differs on too many pixels")
+    timing = timings(lambda: rasterize.rasterize_fwd(*args, width=WIDTH, height=HEIGHT),
+                     lambda: rasterize.rasterize_plain(*args, width=WIDTH, height=HEIGHT),
+                     clock_mhz, flush, plain_iters=3)
+    kept = int(b["tile_cnt"].sum())
+    n_distinct = int(torch.unique(b["patch_gsid"][:kept]).numel()) if kept else 0
+    n_tiles = b["tile_cnt"].numel()
+    nbytes = kept * 4 + n_tiles * 8 + n_distinct * 9 * 4 + n_pix * 5 * 4
+    pairs = k4_pairs(b, tau, cont)
+    lines.append(f"K4 evaluated (entry, pixel) pairs this data needs: {pairs}")
+    return {"name": "K4 rasterize_fwd", "route": "cuda",
+            "source": "easygaussiansplatting_tpu_torch/csrc/rasterize_fwd.cu",
+            "replaces": "easygaussiansplatting_tpu/ops/pallas/kernels.py:174",
+            "max_abs_err": max(err_img, err_tau), **timing,
+            **bound(nbytes, pairs * 15, pairs, clock_mhz, n_sm)}, lines
+
+
+def phase_slice(device):
+    """Serve N_VIEWS render requests through the port's entry point."""
+    params, cams = scene_params(device, sh_random=False)
+    args = [params[k] for k in ("pws", "shs", "alphas", "scales", "rots")]
+    kw = dict(sh_degree=3, max_patches=MAX_PATCHES, max_rows=MAX_ROWS, device=device)
+    for w in (preprocess.preprocess_fwd, scan.multi_cumsum, rasterize.rasterize_fwd):
+        w.launches = 0
+    outs = [render(*args, cam, **kw) for cam in cams]
+    torch.cuda.synchronize()
+    launches = {"K1 preprocess_fwd": preprocess.preprocess_fwd.launches,
+                "K3 multi_cumsum": scan.multi_cumsum.launches,
+                "K4 rasterize_fwd": rasterize.rasterize_fwd.launches}
+    lines = [f"render path launches over {len(cams)} views: {launches}"]
+    require(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    n_pix = WIDTH * HEIGHT
+    for i, (cam, (img, aux)) in enumerate(zip(cams, outs)):
+        bn = aux["binning"]
+        dropped, rows_dropped = int(bn["n_dropped"]), int(bn["rows_dropped"])
+        require(dropped == 0 and rows_dropped == 0,
+                f"view {i} drops {dropped} patches / {rows_dropped} rows")
+        require(img.shape == (3, HEIGHT, WIDTH) and bool(torch.isfinite(img).all()),
+                f"view {i} image is not finite [3,H,W]")
+        img_p, aux_p = render(*args, cam, backend="tiled", **kw)
+        bad = int(((img - img_p).abs() > SLICE_TOL).any(dim=0).sum())
+        same_bins = all(torch.equal(bn[k], aux_p["binning"][k])
+                        for k in ("patch_gsid", "tile_start", "tile_cnt", "total"))
+        lines.append(f"view {i}: {int(bn['total'])} patches, {int(bn['total_rows'])} rows, "
+                     f"dropped 0/0, binning equal to the plain path: {same_bins}, pixels off "
+                     f"the all-plain path by > {SLICE_TOL}: {bad} of {n_pix}, "
+                     f"max_abs_err {float((img - img_p).abs().max()):.3e}, mean {float(img.mean()):.4f}")
+        require(bad <= SLICE_MAX_BAD_SHARE * n_pix, f"view {i} differs from the plain path")
+
+    aux = outs[0][1]
+    aabb = bin_gaussians(aux["us"], aux["depths"], aux["areas"], aux["valid"], width=WIDTH,
+                         height=HEIGHT, max_patches=MAX_PATCHES, max_rows=MAX_ROWS)
+    lines.append(f"view 0 without ellipse row culling (3-sigma boxes only): "
+                 f"{int(aabb['total'])} patches")
+
+    def render_view0():
+        return render(*args, cams[0], **kw)
+
+    ms, line = render_wall(render_view0)
+    lines.append(f"render (device-resident params, view 0): {line} -> "
+                 f"{n_pix / (ms / 1e3) / 1e6:.3f} Mpix/s forward at the median")
+    return launches, lines, (render_view0, ms)
+
+
+def render_wall(render_once, samples=50, warmup=2):
+    """Wall time of one render, from the host clock around work that ends in
+    a synchronise: (median ms, a line with the median, the 80th percentile
+    -- the highest with ten samples beyond it -- and the sample count)."""
+    for _ in range(warmup):
+        render_once()
+    times = []
+    for _ in range(samples):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_once()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    med, p80 = np.percentile(times, [50, 80])
+    return float(med), f"median {med:.3f} ms, p80 {p80:.3f} ms over {samples} renders"
+
+
+def phase_render_profile(render_once, wall_ms, reps=5):
+    """Where the device time of one render goes (a profiled window of
+    ``reps`` renders), its idle share against the unprofiled median wall
+    time, and a second set of wall-time samples, taken after the kernel
+    phases and the profiled window."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            render_once()
+            torch.cuda.synchronize()
+    by_name = {}
+    for e in _kernel_events(prof):
+        name = short_name(e.name)
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    if not by_name:  # a profiler that traces no device leaves the render unbroken-down
+        return ["render profile: torch.profiler recorded no device kernels"]
+    busy = sum(by_name.values())
+    ours = {k: sum(v for n, v in by_name.items() if n in names)
+            for k, names in (("K1", K1_NAMES), ("K3", K3_NAMES), ("K4", K4_NAMES))}
+    lines = [f"render device time {busy:.4f} ms per render ({len(by_name)} kernel names); "
+             f"idle share of the {wall_ms:.3f} ms render {1 - busy / wall_ms:.3f}; port kernels "
+             + ", ".join(f"{k} {v:.4f} ms" for k, v in ours.items())
+             + f"; other kernels {busy - sum(ours.values()):.4f} ms"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    lines.append("render top device kernels: " + "; ".join(f"{n} {v:.4f} ms" for n, v in top))
+    lines.append(f"render wall time again: {render_wall(render_once)[1]}")
+    return lines
+
+
+def phase_cli():
+    out = ROOT / "build" / "smoke_cli.png"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if out.exists():
+        out.unlink()
+    res = subprocess.run([sys.executable, "-m", "easygaussiansplatting_tpu_torch.render",
+                          "--out", str(out)], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    require(res.returncode == 0, f"render CLI failed:\n{res.stdout}\n{res.stderr}")
+    require(out.exists() and out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", "CLI wrote no PNG")
+    return [f"CLI: {res.stdout.strip().splitlines()[-1]}"]
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA device",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain K4 version's matmul
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    smi = nvidia_smi("name,power.limit")
+    print(f"device: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"max SM clock {clock_mhz} MHz, {n_sm} SMs", flush=True)
+
+    t0 = time.perf_counter()
+    _, build_s, log = _build.build(force=True)
+    _build.library()
+    print(f"build: {build_s:.1f} s (nvcc, one process per source, in parallel)", flush=True)
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    launches, lines, (render_once, wall_ms) = phase_slice(device)
+    for line in lines:
+        print(line, flush=True)
+
+    flush = make_flush(device)
+    kernels = []
+    for phase in (phase_k1, phase_k3, phase_k4):
+        entry, lines = phase(device, flush, clock_mhz, n_sm)
+        entry["launches"] = launches[entry["name"]]
+        for line in lines:
+            print(line, flush=True)
+        lib = "none" if entry["library_ms"] is None else f"{entry['library_ms']:.4f} ms"
+        print(f"{entry['name']}: {entry['ms']:.4f} ms by CUDA events ({entry['call_ms']:.4f} ms "
+              f"per call with the host's launch work), plain {entry['plain_ms']:.4f} ms, library "
+              f"{lib}, bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}", flush=True)
+        kernels.append(entry)
+
+    for line in phase_render_profile(render_once, wall_ms):
+        print(line, flush=True)
+
+    for line in phase_cli():
+        print(line, flush=True)
+    print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(smi)
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,138 @@
+"""Gaussian-set loading: official-3DGS .ply and the reference's .npy recarray.
+
+Port of the load side of easygaussiansplatting_tpu/data/gau_io.py (numpy on
+both sides). Conventions: alphas/scales are stored *activated* in .npy
+records; .ply stores raw values (logit opacity, log scales) with the official
+field names; quaternions are wxyz; SH coefficients are interleaved
+RGB-per-basis ([K,3] flattened), whereas .ply f_rest is planar [3,K-1].
+"""
+
+import numpy as np
+
+SH_C0 = 0.28209479177387814  # Y_0^0
+
+
+def gs_dtype(sh_dim):
+    """The reference's record dtype for .npy interop."""
+    return [
+        ("pw", "<f4", (3,)),
+        ("rot", "<f4", (4,)),
+        ("scale", "<f4", (3,)),
+        ("alpha", "<f4"),
+        ("sh", "<f4", (sh_dim,)),
+    ]
+
+
+def arrays_to_recarray(pws, rots, scales, alphas, shs):
+    shs = np.asarray(shs, np.float32).reshape(len(pws), -1)
+    return np.rec.fromarrays(
+        [
+            np.asarray(pws, np.float32),
+            np.asarray(rots, np.float32),
+            np.asarray(scales, np.float32),
+            np.asarray(alphas, np.float32).reshape(-1),
+            shs,
+        ],
+        dtype=gs_dtype(shs.shape[1]),
+    )
+
+
+def recarray_to_arrays(gs):
+    return {
+        "pws": np.asarray(gs["pw"], np.float32),
+        "rots": np.asarray(gs["rot"], np.float32),
+        "scales": np.asarray(gs["scale"], np.float32),
+        "alphas": np.asarray(gs["alpha"], np.float32),
+        "shs": np.asarray(gs["sh"], np.float32),
+    }
+
+
+def _parse_ply_header(f):
+    """Returns (vertex_count, [(name, numpy dtype str)], format)."""
+    magic = f.readline().strip()
+    if magic != b"ply":
+        raise ValueError("not a PLY file")
+    fmt = None
+    props = []
+    count = 0
+    type_map = {
+        b"float": "<f4", b"float32": "<f4", b"double": "<f8", b"float64": "<f8",
+        b"uchar": "u1", b"uint8": "u1", b"char": "i1", b"int8": "i1",
+        b"short": "<i2", b"ushort": "<u2", b"int": "<i4", b"int32": "<i4",
+        b"uint": "<u4", b"uint32": "<u4",
+    }
+    in_vertex = False
+    while True:
+        line = f.readline()
+        if not line:
+            raise ValueError("unterminated PLY header")
+        tok = line.split()
+        if not tok:
+            continue
+        if tok[0] == b"format":
+            fmt = tok[1].decode()
+        elif tok[0] == b"element":
+            in_vertex = tok[1] == b"vertex"
+            if in_vertex:
+                count = int(tok[2])
+        elif tok[0] == b"property" and in_vertex:
+            if tok[1] == b"list":
+                raise ValueError("list properties unsupported in vertex element")
+            props.append((tok[2].decode(), type_map[tok[1]]))
+        elif tok[0] == b"end_header":
+            break
+    return count, props, fmt
+
+
+def load_ply(path):
+    """Load an official-3DGS .ply into the recarray format: sigmoid(opacity),
+    exp(scales), normalised wxyz quaternion, f_rest re-interleaved from
+    planar [3,K] to [K,3]."""
+    with open(path, "rb") as f:
+        count, props, fmt = _parse_ply_header(f)
+        names = [n for n, _ in props]
+        dtype = np.dtype(props)
+        if fmt == "binary_little_endian":
+            data = np.fromfile(f, dtype=dtype, count=count)
+        elif fmt == "ascii":
+            # ndmin=2: a single-vertex file would otherwise come back 1-D
+            data = np.loadtxt(f, dtype=np.float64, max_rows=count, ndmin=2)
+            data = data.reshape(count, len(names))
+            rec = np.zeros(count, dtype=dtype)
+            for i, n in enumerate(names):
+                rec[n] = data[:, i]
+            data = rec
+        else:
+            raise ValueError(f"unsupported PLY format {fmt}")
+
+    pws = np.stack([data["x"], data["y"], data["z"]], axis=1).astype(np.float32)
+    alphas = 1.0 / (1.0 + np.exp(-data["opacity"].astype(np.float64)))
+    scales = np.exp(
+        np.stack([data["scale_0"], data["scale_1"], data["scale_2"]], axis=1).astype(np.float64)
+    )
+    rots = np.stack([data[f"rot_{i}"] for i in range(4)], axis=1).astype(np.float64)
+    rots /= np.linalg.norm(rots, axis=1, keepdims=True)
+
+    n_rest = sum(1 for n in names if n.startswith("f_rest_"))
+    shs = np.zeros((count, 3 + n_rest), np.float32)
+    for i in range(3):
+        shs[:, i] = data[f"f_dc_{i}"]
+    if n_rest:
+        rest = np.stack([data[f"f_rest_{i}"] for i in range(n_rest)], axis=1)
+        # planar [3, K] -> interleaved [K, 3]
+        shs[:, 3:] = rest.reshape(count, 3, n_rest // 3).transpose(0, 2, 1).reshape(count, n_rest)
+
+    return arrays_to_recarray(
+        pws, rots.astype(np.float32), scales.astype(np.float32),
+        alphas.astype(np.float32), shs,
+    )
+
+
+def load_gs(path):
+    """Load a .ply or .npy gaussian file as a recarray."""
+    p = str(path)
+    if p.endswith(".ply"):
+        return load_ply(p)
+    if p.endswith(".npy"):
+        return np.load(p)
+    raise ValueError(f"unsupported gaussian file: {p}")

@@ -1,0 +1,47 @@
+"""Carrying a scene across from the JAX package's numpy arrays.
+
+The tests feed both packages the same scene: the JAX package's parameter
+arrays (``pws``, ``shs``, ``alphas``, ``scales``, ``rots`` as numpy) become
+float32 tensors here, and a JAX camera's numpy leaves (or a camera dict)
+become the port's :class:`Camera`.
+"""
+
+import numpy as np
+import torch
+
+from easygaussiansplatting_tpu_torch.models.camera import Camera
+from easygaussiansplatting_tpu_torch.utils.device import resolve_device
+
+PARAM_KEYS = ("pws", "shs", "alphas", "scales", "rots")
+
+
+def gaussians_from_numpy(d, device="cuda"):
+    """{pws [N,3], shs [N,S] (or [N,K,3]), alphas [N] (or [N,1]),
+    scales [N,3], rots [N,4]} (numpy or anything array-like) -> dict of
+    contiguous float32 tensors on ``device``."""
+    dev = resolve_device(device)
+    n = len(d["pws"])
+    out = {}
+    for k in PARAM_KEYS:
+        a = np.asarray(d[k], np.float32)
+        if k == "shs":
+            a = a.reshape(n, -1)
+        elif k == "alphas":
+            a = a.reshape(n)
+        out[k] = torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    return out
+
+
+def camera_from_numpy(cam):
+    """A JAX ``Camera`` (anything with Rcw, tcw, fx, fy, cx, cy, width,
+    height attributes holding numpy-convertible leaves) or a camera dict ->
+    the port's float32 host :class:`Camera`."""
+    if isinstance(cam, dict):
+        return Camera.from_dict(cam)
+    return Camera.from_dict({
+        "Rcw": np.asarray(cam.Rcw), "tcw": np.asarray(cam.tcw),
+        "fx": np.asarray(cam.fx), "fy": np.asarray(cam.fy),
+        "cx": np.asarray(cam.cx), "cy": np.asarray(cam.cy),
+        "width": int(cam.width), "height": int(cam.height),
+        "id": int(np.asarray(getattr(cam, "id", 0))),
+    })

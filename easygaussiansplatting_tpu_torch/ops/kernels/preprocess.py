@@ -1,0 +1,116 @@
+"""K1: fused preprocess forward (stages 1-5 in one kernel).
+
+Port of easygaussiansplatting_tpu/ops/pallas/preprocess.py, forward only
+(``fused_preprocess``, ``_forward_rows``). The kernel is
+``csrc/preprocess.cu``; its plain version is ops/stages.py, assembled into the
+same table by :func:`preprocess_plain`.
+
+Both write one table row per gaussian (``TABLE_COLS`` = 12 floats):
+  0 ux, 1 uy, 2-4 conic (a, b, c), 5 alpha, 6-8 rgb, 9 depth, 10-11 extents.
+The stage-6 kernel (ops/kernels/rasterize.py) gathers rows of this table by
+patch gaussian id; the public :func:`fused_preprocess` dict holds views of it
+under the names the JAX package uses.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from easygaussiansplatting_tpu_torch.ops import stages
+from easygaussiansplatting_tpu_torch.ops.kernels import _build
+from easygaussiansplatting_tpu_torch.utils.sh import SH_CONSTS
+
+TABLE_COLS = 12
+CAM_LEN = 21  # Rcw(9) tcw(3) twc(3) fx fy cx cy limx limy
+_SH_CONSTS = (ctypes.c_float * len(SH_CONSTS))(*np.asarray(SH_CONSTS, np.float32))
+
+
+def camera_vector(cam):
+    """The flat float32 camera vector the kernel takes (CAM_LEN values)."""
+    return np.concatenate([
+        np.asarray(cam.Rcw, np.float32).reshape(9),
+        np.asarray(cam.tcw, np.float32).reshape(3),
+        np.asarray(cam.twc, np.float32).reshape(3),
+        np.asarray([cam.fx, cam.fy, cam.cx, cam.cy,
+                    stages.fov_limit(cam.width, cam.fx),
+                    stages.fov_limit(cam.height, cam.fy)], np.float32),
+    ])
+
+
+def pack_table(us, cinv2ds, alphas, colors, depths, areas):
+    """Per-gaussian attributes -> the [N, TABLE_COLS] table layout."""
+    return torch.cat(
+        [us, cinv2ds, alphas[:, None], colors, depths[:, None], areas], dim=1
+    ).contiguous()
+
+
+def preprocess_plain(pws, shs, alphas, scales, rots, cam, sh_degree=3):
+    """Plain PyTorch version of K1: ops/stages.py packed into the table."""
+    o = stages.preprocess(pws, shs, alphas, scales, rots, cam, sh_degree=sh_degree)
+    return pack_table(o["us"], o["cinv2ds"], o["alphas"], o["colors"],
+                      o["depths"], o["areas"])
+
+
+def _check_params(pws, shs, alphas, scales, rots):
+    n = pws.shape[0] if pws.dim() == 2 else -1
+    shapes = {"pws": (n, 3), "shs": (n, shs.shape[-1]), "alphas": (n,),
+              "scales": (n, 3), "rots": (n, 4)}
+    for name, t in zip(shapes, (pws, shs, alphas, scales, rots)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != pws.device:
+            raise ValueError(f"{name} is on {t.device}, pws on {pws.device}")
+    return n
+
+
+def preprocess_fwd(pws, shs, alphas, scales, rots, cam, sh_degree=3):
+    """K1 wrapper: float32 contiguous parameters -> [N, TABLE_COLS] table.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    n = _check_params(pws, shs, alphas, scales, rots)
+    n_bases = stages.sh_bases(shs.shape[1], sh_degree)
+    if pws.device.type == "cpu":
+        return preprocess_plain(pws, shs, alphas, scales, rots, cam, sh_degree)
+    if pws.device.type != "cuda":
+        raise ValueError(f"unsupported device {pws.device}")
+    out = torch.empty((n, TABLE_COLS), dtype=torch.float32, device=pws.device)
+    camv = (ctypes.c_float * CAM_LEN)(*camera_vector(cam))
+    lib = _build.library()
+    _build.check(lib.egs_preprocess_fwd(
+        pws.data_ptr(), shs.data_ptr(), alphas.data_ptr(), scales.data_ptr(),
+        rots.data_ptr(), ctypes.cast(camv, ctypes.c_void_p),
+        ctypes.cast(_SH_CONSTS, ctypes.c_void_p), out.data_ptr(), n, n_bases,
+        _build.stream_ptr(pws)), "egs_preprocess_fwd")
+    preprocess_fwd.launches += 1
+    return out
+
+
+preprocess_fwd.launches = 0
+
+
+def fused_preprocess(pws, shs, alphas, scales, rots, cam, alive=None, sh_degree=3):
+    """Drop-in for stages.preprocess on the kernel path.
+
+    Returns the JAX ``fused_preprocess`` dict (us, cinv2ds, colors, alphas,
+    depths, areas, valid) plus ``table``, the [N, TABLE_COLS] table the
+    stage-6 kernel reads; the named entries are views of it."""
+    table = preprocess_fwd(pws, shs, alphas, scales, rots, cam, sh_degree)
+    depths = table[:, 9]
+    valid = depths >= stages.MIN_DEPTH
+    if alive is not None:
+        valid = valid & alive
+    return {
+        "table": table,
+        "us": table[:, 0:2],
+        "cinv2ds": table[:, 2:5],
+        "colors": table[:, 6:9],
+        "alphas": alphas,
+        "depths": depths,
+        "areas": table[:, 10:12],
+        "valid": valid,
+    }

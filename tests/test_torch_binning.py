@@ -1,0 +1,117 @@
+"""PyTorch port: tile binning against the JAX binning on the same (JAX-stage)
+arrays — every integer output exactly equal."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from easygaussiansplatting_tpu.data.synthetic import make_synthetic_scene
+from easygaussiansplatting_tpu.ops import binning as jax_binning
+from easygaussiansplatting_tpu.ops import stages as jax_stages
+from easygaussiansplatting_tpu_torch.ops import binning
+
+torch.set_num_threads(2)
+
+INT_KEYS = ("patch_gsid", "patch_tile", "tile_start", "tile_cnt", "total",
+            "n_dropped", "rows_dropped", "total_rows")
+W, H = 64, 48
+
+
+def _stage_arrays(seed, n=300):
+    """JAX stage outputs of a small synthetic scene (depths are continuous
+    random values: no ties)."""
+    scene = make_synthetic_scene(seed=seed, n_gaussians=n, n_cams=1, width=W, height=H,
+                                 log_scale_mean=-2.6)
+    args = [jnp.asarray(scene[k], jnp.float32)
+            for k in ("pws", "shs", "alphas", "scales", "rots")]
+    aux = jax_stages.preprocess(*args, scene["cameras"][0], sh_degree=0)
+    return {k: np.array(aux[k]) for k in
+            ("us", "depths", "areas", "valid", "cinv2ds", "alphas")}
+
+
+def _bin_both(a, conics, **budget):
+    jkw = dict(width=W, height=H, **budget)
+    if conics:
+        jkw.update(cinv2ds=jnp.asarray(a["cinv2ds"]), alphas=jnp.asarray(a["alphas"]))
+    want = jax_binning.bin_gaussians(
+        jnp.asarray(a["us"]), jnp.asarray(a["depths"]), jnp.asarray(a["areas"]),
+        jnp.asarray(a["valid"]), **jkw)
+    tkw = dict(width=W, height=H, **budget)
+    if conics:
+        tkw.update(cinv2ds=torch.from_numpy(a["cinv2ds"]), alphas=torch.from_numpy(a["alphas"]))
+    got = binning.bin_gaussians(
+        torch.from_numpy(a["us"]), torch.from_numpy(a["depths"]),
+        torch.from_numpy(a["areas"]), torch.from_numpy(a["valid"]), **tkw)
+    return got, want
+
+
+def _assert_equal(got, want):
+    for k in INT_KEYS:
+        assert got[k].dtype == torch.int32, k
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("conics", [True, False])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_binning_matches_jax(seed, conics):
+    a = _stage_arrays(seed)
+    got, want = _bin_both(a, conics, max_patches=4096)
+    assert int(want["n_dropped"]) == 0 and int(want["total"]) > 100
+    _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("conics", [True, False])
+def test_patch_budget_overflow_matches_jax(conics):
+    a = _stage_arrays(2)
+    got, want = _bin_both(a, conics, max_patches=256, max_rows=4096)
+    assert int(want["n_dropped"]) > 0
+    _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("conics", [True, False])
+def test_row_budget_overflow_matches_jax(conics):
+    a = _stage_arrays(3)
+    got, want = _bin_both(a, conics, max_patches=4096, max_rows=128)
+    assert int(want["rows_dropped"]) > 0
+    _assert_equal(got, want)
+
+
+def test_tile_ranges_cover_sorted_ids():
+    """The counted per-tile ranges agree with the sorted tile ids."""
+    a = _stage_arrays(4)
+    got, _ = _bin_both(a, True, max_patches=300)
+    tile = got["patch_tile"].numpy()
+    for t, (s, c) in enumerate(zip(got["tile_start"].numpy(), got["tile_cnt"].numpy())):
+        assert np.all(tile[s:s + c] == t)
+    assert int(got["tile_cnt"].sum()) == min(int(got["total"]), 300)
+
+
+def test_gaussian_rects_and_num_tiles(rng):
+    us = rng.uniform(-20, 90, size=(64, 2)).astype(np.float32)
+    areas = rng.integers(0, 12, size=(64, 2)).astype(np.float32)
+    valid = rng.random(64) < 0.8
+    want_r, want_v = jax_binning.gaussian_rects(jnp.asarray(us), jnp.asarray(areas),
+                                                jnp.asarray(valid), W, H)
+    got_r, got_v = binning.gaussian_rects(torch.from_numpy(us), torch.from_numpy(areas),
+                                          torch.from_numpy(valid), W, H)
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(want_r))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    assert binning.num_tiles(979, 546) == jax_binning.num_tiles(979, 546) == (62, 35)
+
+
+def test_propagate_marks_drops_past_budget():
+    starts = np.array([0, 2, 2, 5, 9, 12], np.int32)
+    values = np.array([3, 7, 1, 4, 8, 6], np.int32)
+    want = jax_binning._propagate_marks(jnp.asarray(starts), jnp.asarray(values), 10)
+    got = binning._propagate_marks(torch.from_numpy(starts), torch.from_numpy(values), 10)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_dense_tile_lists_matches_jax():
+    a = _stage_arrays(5)
+    got, want = _bin_both(a, True, max_patches=2048)
+    kmax = int(want["tile_cnt"].max())
+    np.testing.assert_array_equal(
+        binning.dense_tile_lists(got, max_per_tile=kmax).numpy(),
+        np.asarray(jax_binning.dense_tile_lists(want, max_per_tile=kmax)))
