@@ -2,23 +2,33 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from easygaussiansplatting_tpu_torch/csrc,
-holds each against its plain PyTorch version on the card at the shapes of the
-forward render, then serves a few renders through the port's entry point at
-the configuration bench.py times (65,536 gaussians, SH degree 3, 979x546,
-max_patches 557,056, max_rows 229,376), checks them against the all-plain
-path, and runs the render CLI once. Any failed check exits non-zero.
+Builds the port's CUDA kernels from easygaussiansplatting_tpu_torch/csrc and
+drives the port's two paths at the configuration bench.py times (65,536
+gaussians, SH degree 3, 979x546, max_patches 557,056, max_rows 229,376):
+
+* the render path: a few renders through the port's entry point, checked
+  against the all-plain path, then K1, K3 and K4 each held against its plain
+  PyTorch version on the render's inputs, and the render CLI once;
+* the training path: ground truth of 4 views rendered by the port, a pool
+  started from the scene with perturbed opacities and colours, and 23 steps
+  of ``make_train_step`` (3 warm, 20 timed) cycling the views; then one step
+  held against the all-plain step, two kernel steps held bit-equal, and K2,
+  K5 and K6 each held against its plain version on the step's inputs.
+
+Each path's kernel launch counts are set to 0 just before it runs and read
+just after. Any failed check exits non-zero.
 
 Output: per-phase lines, then the card's name and power limit as nvidia-smi
 gives them, then on its own line a JSON object {"kernels": [...]} (per
-kernel: launches on the render path, max abs error against the plain
-version, kernel / plain / library times in ms, the data-sheet bound), and
-last {"ok": true, "device": {...}}.
+kernel: launches on its path, max abs error against the plain version,
+kernel / plain / library times in ms, the data-sheet bound), and last
+{"ok": true, "device": {...}}.
 
 Needs torch with CUDA and nvcc (CUDA_HOME, /usr/local/cuda or PATH); exits
 non-zero without a CUDA device. Imports nothing of JAX.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -30,10 +40,17 @@ import torch
 
 from easygaussiansplatting_tpu_torch.data.synthetic import make_synthetic_scene
 from easygaussiansplatting_tpu_torch.models.convert import gaussians_from_numpy
+from easygaussiansplatting_tpu_torch.models.gaussians import pool_from_arrays
 from easygaussiansplatting_tpu_torch.ops import stages
-from easygaussiansplatting_tpu_torch.ops.binning import bin_gaussians
+from easygaussiansplatting_tpu_torch.ops.binning import TILE, bin_gaussians, num_tiles
+from easygaussiansplatting_tpu_torch.ops.blend import ALPHA_CLAMP, ALPHA_SKIP, chunk_alpha
 from easygaussiansplatting_tpu_torch.ops.kernels import _build, preprocess, rasterize, scan
 from easygaussiansplatting_tpu_torch.ops.rasterize import render
+from easygaussiansplatting_tpu_torch.ops.rasterize_tiled import K_CHUNK
+from easygaussiansplatting_tpu_torch.train.config import TrainConfig
+from easygaussiansplatting_tpu_torch.train.density import density_stats_init
+from easygaussiansplatting_tpu_torch.train.loop import loss_and_grads, make_train_step
+from easygaussiansplatting_tpu_torch.train.optimizer import adam_init
 
 ROOT = Path(__file__).resolve().parent
 
@@ -45,6 +62,7 @@ MAX_PATCHES = 557056
 MAX_ROWS = 229376
 N_VIEWS = 4
 SEED = 0
+TRAIN_WARM, TRAIN_STEPS = 3, 20
 
 # Published H100 SXM peaks (NVIDIA data sheet): device memory and FP32
 # outside the tensor cores. INT32 adds are counted at half the FP32 rate
@@ -72,12 +90,41 @@ K4_TOL = 1e-4
 K4_CONTRIB_MATCH = 0.9999
 SLICE_TOL = 1e-4
 SLICE_MAX_BAD_SHARE = 1e-3
+# Gradient limits are relative to the values compared: the loss is a mean
+# over 534,534 pixels, so every gradient is far below 1 and a limit relative
+# to 1 could not fail. The kernel step against the all-plain step: the loss
+# within rel 1e-5, each gradient group within STEP_REL * max|g| of its group.
+# The two forwards differ (K4 multiplies tau sequentially, its plain version
+# in chunked cumulative products) and each backward replays from its own
+# tau, so the step reads up to 1.5e-3 * max|g| where every kernel is sound.
+STEP_LOSS_RTOL = 1e-5
+STEP_REL = 1e-2
+# K2 and K5 against their plain versions on the same inputs: float32 sums in
+# another order, each group (K2) or row (K5) within KERNEL_REL * max|want|.
+KERNEL_REL = 1e-4
+# a group whose values are all below this has nothing to compare
+REL_FLOOR = 1e-12
+# K6 against its float64 plain version: float32 running sums, within 1e-5
+# of the segment's running sum of |x|
+K6_RTOL = 1e-5
 
 
 # device kernel names of each port kernel (csrc/)
 K1_NAMES = ("preprocess_fwd_kernel",)
 K3_NAMES = ("scan_block_sums", "scan_block_offsets", "scan_apply")
 K4_NAMES = ("rasterize_fwd_kernel",)
+K2_NAMES = ("preprocess_bwd_kernel",)
+K5_NAMES = ("rasterize_bwd_kernel",)
+K6_NAMES = ("seg_block_sums", "seg_block_carries", "seg_scan_apply")
+RENDER_GROUPS = (("K1", K1_NAMES), ("K3", K3_NAMES), ("K4", K4_NAMES))
+STEP_GROUPS = RENDER_GROUPS + (("K2", K2_NAMES), ("K5", K5_NAMES), ("K6", K6_NAMES))
+# each kernel's wrapper, whose launch count its path reads
+WRAPPERS = {"K1 preprocess_fwd": preprocess.preprocess_fwd,
+            "K2 preprocess_bwd": preprocess.preprocess_bwd,
+            "K3 multi_cumsum": scan.multi_cumsum,
+            "K4 rasterize_fwd": rasterize.rasterize_fwd,
+            "K5 rasterize_bwd": rasterize.rasterize_bwd,
+            "K6 segmented_cumsum": scan.segmented_cumsum}
 
 
 def require(cond, msg):
@@ -331,8 +378,9 @@ def phase_slice(device):
     """Serve N_VIEWS render requests through the port's entry point."""
     params, cams = scene_params(device, sh_random=False)
     args = [params[k] for k in ("pws", "shs", "alphas", "scales", "rots")]
-    kw = dict(sh_degree=3, max_patches=MAX_PATCHES, max_rows=MAX_ROWS, device=device)
-    for w in (preprocess.preprocess_fwd, scan.multi_cumsum, rasterize.rasterize_fwd):
+    kw = dict(sh_degree=3, max_patches=MAX_PATCHES, max_rows=MAX_ROWS, need_grads=False,
+              device=device)
+    for w in WRAPPERS.values():
         w.launches = 0
     outs = [render(*args, cam, **kw) for cam in cams]
     torch.cuda.synchronize()
@@ -391,33 +439,336 @@ def render_wall(render_once, samples=50, warmup=2):
     return float(med), f"median {med:.3f} ms, p80 {p80:.3f} ms over {samples} renders"
 
 
-def phase_render_profile(render_once, wall_ms, reps=5):
-    """Where the device time of one render goes (a profiled window of
-    ``reps`` renders), its idle share against the unprofiled median wall
-    time, and a second set of wall-time samples, taken after the kernel
-    phases and the profiled window."""
+def phase_profile(label, run_once, wall_ms, groups, reps=5, again=True):
+    """Where the device time of one run goes (a profiled window of ``reps``
+    runs), its idle share against the unprofiled median wall time, and, with
+    ``again``, a second set of wall-time samples taken after the window."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
-            render_once()
+            run_once()
             torch.cuda.synchronize()
     by_name = {}
     for e in _kernel_events(prof):
         name = short_name(e.name)
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
-    if not by_name:  # a profiler that traces no device leaves the render unbroken-down
-        return ["render profile: torch.profiler recorded no device kernels"]
+    if not by_name:  # a profiler that traces no device leaves the run unbroken-down
+        return [f"{label} profile: torch.profiler recorded no device kernels"]
     busy = sum(by_name.values())
-    ours = {k: sum(v for n, v in by_name.items() if n in names)
-            for k, names in (("K1", K1_NAMES), ("K3", K3_NAMES), ("K4", K4_NAMES))}
-    lines = [f"render device time {busy:.4f} ms per render ({len(by_name)} kernel names); "
-             f"idle share of the {wall_ms:.3f} ms render {1 - busy / wall_ms:.3f}; port kernels "
+    ours = {k: sum(v for n, v in by_name.items() if n in names) for k, names in groups}
+    lines = [f"{label} device time {busy:.4f} ms per {label} ({len(by_name)} kernel names); "
+             f"idle share of the {wall_ms:.3f} ms {label} {1 - busy / wall_ms:.3f}; port kernels "
              + ", ".join(f"{k} {v:.4f} ms" for k, v in ours.items())
              + f"; other kernels {busy - sum(ours.values()):.4f} ms"]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    lines.append("render top device kernels: " + "; ".join(f"{n} {v:.4f} ms" for n, v in top))
-    lines.append(f"render wall time again: {render_wall(render_once)[1]}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    lines.append(f"{label} top device kernels: " + "; ".join(f"{n} {v:.4f} ms" for n, v in top))
+    if again:
+        lines.append(f"{label} wall time again: {render_wall(run_once)[1]}")
     return lines
+
+
+def train_setup(device):
+    """Ground truth of the N_VIEWS views rendered by the port, and a pool of
+    capacity N_GAUSSIANS started from the scene with opacities and colours
+    perturbed by a seeded generator (scales left alone, so the patch count
+    stays inside the budget)."""
+    scene = make_synthetic_scene(seed=SEED, n_gaussians=N_GAUSSIANS, n_cams=N_VIEWS,
+                                 width=WIDTH, height=HEIGHT, log_scale_mean=-3.6)
+    shs = np.zeros((N_GAUSSIANS, SH_COLS), np.float32)
+    shs[:, :3] = scene["shs"]
+    args = [scene["pws"], shs, scene["alphas"], scene["scales"], scene["rots"]]
+    gts = [render(*args, cam, sh_degree=3, max_patches=MAX_PATCHES, max_rows=MAX_ROWS,
+                  need_grads=False, device=device)[0] for cam in scene["cameras"]]
+    gen = torch.Generator().manual_seed(SEED + 2)
+    alphas = np.clip(scene["alphas"] + 0.1 * torch.randn(N_GAUSSIANS, generator=gen).numpy(),
+                     0.05, 0.95)
+    shs_p = shs.copy()
+    shs_p[:, :3] += 0.2 * torch.randn((N_GAUSSIANS, 3), generator=gen).numpy()
+    pool = pool_from_arrays(scene["pws"], scene["rots"], scene["scales"], alphas, shs_p,
+                            capacity=N_GAUSSIANS, device=device)
+    cfg = TrainConfig(max_patches=MAX_PATCHES, max_rows=MAX_ROWS, sh_degree=3)
+    return pool, scene["cameras"], gts, scene["scene_size"], cfg
+
+
+def phase_train(device):
+    """The training path: TRAIN_WARM + TRAIN_STEPS steps cycling the views,
+    each timed on the host clock to a synchronise."""
+    pool, cams, gts, scene_size, cfg = train_setup(device)
+    n_steps = TRAIN_WARM + TRAIN_STEPS
+    step = make_train_step(cfg, scene_size, n_steps, device=device)
+    state = adam_init(pool.params())
+    stats = density_stats_init(pool.capacity, device)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    losses, drops, times = [], [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, binfo = step(pool, state, stats, cams[i % N_VIEWS], gts[i % N_VIEWS])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        drops.append(binfo["dropped"])
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    losses = [float(v) for v in losses]
+    drops = [int(v) for v in drops]
+    per_step = {k: v / n_steps for k, v in launches.items()}
+    lines = [f"training path launches over {n_steps} steps: {launches} ({per_step} per step)",
+             f"training losses: " + " ".join(f"{v:.5f}" for v in losses)]
+    require(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    require(all(d == 0 for d in drops), f"a step dropped patches or rows: {drops}")
+    first, last = float(np.mean(losses[:N_VIEWS])), float(np.mean(losses[-N_VIEWS:]))
+    require(last < first, f"the loss did not fall: first {first:.5f}, last {last:.5f}")
+    med, p80 = np.percentile(times[TRAIN_WARM:], [50, 80])
+    n_pix = WIDTH * HEIGHT
+    lines.append(f"training: 0 dropped patches and rows in all {n_steps} steps; mean loss of "
+                 f"the first {N_VIEWS} steps {first:.5f}, of the last {N_VIEWS} {last:.5f}")
+    lines.append(f"train step: median {med:.3f} ms, p80 {p80:.3f} ms over {TRAIN_STEPS} steps "
+                 f"after {TRAIN_WARM} warm -> {n_pix / (med / 1e3) / 1e6:.3f} Mpix/s fwd+bwd at "
+                 f"the median")
+    counter = [n_steps]
+
+    def step_once():
+        i = counter[0]
+        counter[0] += 1
+        step(pool, state, stats, cams[i % N_VIEWS], gts[i % N_VIEWS])
+
+    lines += phase_profile("step", step_once, float(med), STEP_GROUPS, again=False)
+    return launches, lines, (pool, cams, gts, cfg)
+
+
+def phase_step_compare(pool, cam, gt, cfg):
+    """One step from one state: the kernel step against the all-plain step,
+    and two kernel steps against each other (bit-equal)."""
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads, aux = loss_and_grads(pool, cam, gt, cfg)
+    torch.cuda.synchronize()
+    peak_k = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss_p, grads_p, aux_p = loss_and_grads(pool, cam, gt, dataclasses.replace(cfg, backend="tiled"))
+    torch.cuda.synchronize()
+    peak_p = torch.cuda.max_memory_allocated()
+    rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    lines = [f"kernel step vs all-plain step (view 0): loss {float(loss):.7f} vs "
+             f"{float(loss_p):.7f} (rel {rel:.2e}); peak memory {peak_k / 2**30:.2f} GiB kernel, "
+             f"{peak_p / 2**30:.2f} GiB all-plain"]
+    require(rel <= STEP_LOSS_RTOL, "the kernel step's loss differs from the all-plain step's")
+    _, check_lines = group_check("  step gradients", list(grads),
+                                 [grads[k] for k in grads], [grads_p[k] for k in grads], STEP_REL)
+    lines += check_lines
+    bn, bn_p = aux["binning"], aux_p["binning"]
+    same = all(torch.equal(bn[k], bn_p[k]) for k in
+               ("patch_gsid", "tile_cnt", "total", "n_dropped", "total_rows", "rows_dropped",
+                "gsid_counts"))
+    lines.append(f"  binning and binfo equal to the all-plain step's: {same}")
+    require(same, "the kernel step's binning differs from the all-plain step's")
+    _, grads2, _ = loss_and_grads(pool, cam, gt, cfg)
+    equal = all(torch.equal(grads[k], grads2[k]) for k in grads)
+    lines.append(f"determinism: two kernel steps from one state give bit-equal gradients: {equal}")
+    require(equal, "two kernel steps from one state differ")
+    return lines
+
+
+class _Keeper:
+    """Stands in for a kernel wrapper in its module: calls it and keeps its
+    arguments (detached, so that a plain version builds no graph on them)
+    and result. The wrapper counts its launches under its module name, which
+    now names this object, so ``launches`` reads and writes the wrapper's."""
+
+    def __init__(self, fn, seen):
+        self.fn, self.seen = fn, seen
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        args = tuple(a.detach() if torch.is_tensor(a) else a for a in args)
+        self.seen[self.fn.__name__] = (args, kwargs, out)
+        return out
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+
+def step_inputs(pool, cam, gt, cfg):
+    """What K2, K5 and K6 receive in one kernel step from ``cam``: for one
+    ``loss_and_grads`` call each wrapper's module name is bound to a
+    _Keeper, so the kernels are later held to their plain versions on
+    exactly what the step ran. Returns {wrapper name: (args, kwargs,
+    result)}."""
+    sites = ((preprocess, "preprocess_bwd"), (rasterize, "rasterize_bwd"),
+             (scan, "segmented_cumsum"))
+    seen = {}
+    originals = [getattr(mod, name) for mod, name in sites]
+    for (mod, name), fn in zip(sites, originals):
+        setattr(mod, name, _Keeper(fn, seen))
+    try:
+        loss_and_grads(pool, cam, gt, cfg)
+    finally:
+        for (mod, name), fn in zip(sites, originals):
+            setattr(mod, name, fn)
+    require(sorted(seen) == sorted(name for _, name in sites),
+            f"the step called only {sorted(seen)} of the backward kernels")
+    return seen
+
+
+def group_check(label, names, got, want, rel):
+    """Each group of ``got`` against ``want`` within rel * max|want| of the
+    group (at least REL_FLOOR); and the same limit on planted faults, each
+    group in turn zeroed and negated, which it must refuse. Returns (worst
+    error, lines); raises, with the lines, when a sound group fails or a
+    planted fault passes."""
+    parts, worst, ok, n_caught, n_planted = [], 0.0, True, 0, 0
+    for name, a, b in zip(names, got, want):
+        scale = float(b.abs().max())
+        limit = max(rel * scale, REL_FLOOR)
+        err = float((a - b).abs().max())
+        worst = max(worst, err)
+        ok = ok and err <= limit and bool(torch.isfinite(a).all())
+        parts.append(f"{name} {err:.2e} ({err / max(scale, REL_FLOOR):.1e} of max|want| "
+                     f"{scale:.2e})")
+        for fault in (torch.zeros_like(a), -a):
+            n_planted += 1
+            n_caught += float((fault - b).abs().max()) > limit
+    lines = [f"{label}: max_abs_err, limit {rel:g} of each group's max|want|: "
+             + ", ".join(parts),
+             f"{label}: planted faults the limit refuses (each group zeroed, each negated): "
+             f"{n_caught} of {n_planted}"]
+    require(ok, f"{label} differ beyond the limit\n" + "\n".join(lines))
+    require(n_caught == n_planted, f"{label}: a planted fault passes\n" + "\n".join(lines))
+    return worst, lines
+
+
+def phase_k2(seen, flush, clock_mhz, n_sm):
+    args, kwargs, _ = seen["preprocess_bwd"]
+    got = preprocess.preprocess_bwd(*args, **kwargs)
+    want = preprocess.preprocess_bwd_plain(*args, **kwargs)
+    worst, lines = group_check("K2 on the step's inputs",
+                               ("pws", "shs", "alphas", "scales", "rots"), got, want, KERNEL_REL)
+    timing = timings(lambda: preprocess.preprocess_bwd(*args, **kwargs),
+                     lambda: preprocess.preprocess_bwd_plain(*args, **kwargs),
+                     clock_mhz, flush)
+    n = args[0].shape[0]
+    n_par = 3 + SH_COLS + 1 + 3 + 4
+    nbytes = n * 4 * (2 * n_par + preprocess.TABLE_COLS)  # params and cotangent in, grads out
+    return {"name": "K2 preprocess_bwd", "route": "cuda",
+            "source": "easygaussiansplatting_tpu_torch/csrc/preprocess_bwd.cu",
+            "replaces": "easygaussiansplatting_tpu/ops/pallas/preprocess.py:180",
+            "max_abs_err": worst, **timing,
+            # ~600 FP32 operations per gaussian, an estimate: the bytes bound
+            # K2 more than tenfold over it
+            **bound(nbytes, n * 600, 0, clock_mhz, n_sm)}, lines
+
+
+def k5_work(table, patch_gsid, tile_start, tile_cnt, contrib):
+    """What K5's walk does on this data, counted with the plain evaluation of
+    alpha' (ops/blend.chunk_alpha) in K5's chunk order: the (entry, pixel)
+    pairs evaluated (positions below the pixel's contributor count); of
+    those the live ones (alpha' >= ALPHA_SKIP), of those the unclamped ones
+    (alpha' < ALPHA_CLAMP), and of those the ones with maha > 0; and the
+    (entry, tile) reductions (positions below the tile's largest count)."""
+    dev = table.device
+    gx, gy = num_tiles(WIDTH, HEIGHT)
+    cont = torch.zeros((gy * TILE, gx * TILE), dtype=torch.int64, device=dev)
+    cont[:HEIGHT, :WIDTH] = contrib
+    cont = cont.reshape(gy, TILE, gx, TILE).transpose(1, 2).reshape(gx * gy, TILE * TILE)
+    maxc = torch.minimum(cont.amax(1), tile_cnt.long())
+    t = torch.arange(gx * gy, device=dev)
+    origin = torch.stack([(t % gx) * TILE, (t // gx) * TILE], dim=1).float()
+    lin = torch.arange(TILE * TILE, device=dev)
+    px, py = (lin % TILE).float(), (lin // TILE).float()
+    k_off = torch.arange(K_CHUNK, device=dev)
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    for c in range(-(-int(maxc.max()) // K_CHUNK)):
+        pos = c * K_CHUNK + k_off[None, :]  # [1, K]
+        idx = torch.clamp(tile_start[:, None].long() + pos, 0, patch_gsid.numel() - 1)
+        ok = (pos < maxc[:, None]) & (patch_gsid[idx] >= 0)  # [T, K]
+        row = table[patch_gsid[idx].clamp(min=0).long()]  # [T, K, TABLE_COLS]
+        ap, (_, _, maha) = chunk_alpha(row[..., 0:2] - origin[:, None, :], row[..., 2:5],
+                                       row[..., 5], ok, px, py)
+        evaluated = pos[..., None] < cont[:, None, :]  # [T, K, P]
+        live = evaluated & (ap >= ALPHA_SKIP)
+        unclamped = live & (ap < ALPHA_CLAMP)
+        counts += torch.stack([evaluated.sum(), live.sum(), unclamped.sum(),
+                               (unclamped & (maha > 0)).sum()])
+    return [int(v) for v in counts] + [int(maxc.sum())]
+
+
+def k5_bound(nbytes, work, clock_mhz, n_sm):
+    """K5's bound from k5_work's counts, with the FP32 operations and MUFU
+    results counted from csrc/rasterize_bwd.cu and csrc/blend.cuh (a
+    division as a reciprocal and a multiply, the least it costs)."""
+    evaluated, live, unclamped, moments, entries = work
+    # evaluated: blend_alpha (dx, dy 2; maha 7 mul + 2 add; max, *-0.5,
+    # *alpha, min 4) 15, the skip compare 1, and its share of the reduction,
+    # 9 adds; one exp.
+    # live: 1 - alpha' 1, tau's division 1, tau*alpha' 1, g.c 5, d alpha'
+    # (tau*g.c, max, division, subtract) 4, the behind sum 2, the clamp
+    # compare 1, the three colour terms 3; two reciprocals.
+    # unclamped: d alpha' * alpha' 1, the maha compare 1.
+    # maha > 0: d maha 1, the five moments 5 (dm*dx reused).
+    # (entry, tile): the gradients from the nine sums (rows 0, 1 and 3: 10;
+    # the max 1) and a division 1; one reciprocal.
+    ops = evaluated * 25 + live * 18 + unclamped * 2 + moments * 6 + entries * 12
+    mufu = evaluated + live * 2 + entries
+    return bound(nbytes, ops, mufu, clock_mhz, n_sm)
+
+
+def phase_k5(seen, flush, clock_mhz, n_sm):
+    args, kw, _ = seen["rasterize_bwd"]
+    table, patch_gsid, tile_start, tile_cnt, _, _, contrib = args
+    got = rasterize.rasterize_bwd(*args, **kw)
+    want = rasterize.rasterize_bwd_plain(*args, **kw)
+    worst, lines = group_check("K5 on the step's inputs",
+                               ("ux", "uy", "ca", "cb", "cc", "alpha", "r", "g", "b"),
+                               got, want, KERNEL_REL)
+    timing = timings(lambda: rasterize.rasterize_bwd(*args, **kw),
+                     lambda: rasterize.rasterize_bwd_plain(*args, **kw),
+                     clock_mhz, flush, plain_iters=3)
+    work = k5_work(table, patch_gsid, tile_start, tile_cnt, contrib)
+    lines.append("K5 work this data needs: (entry, pixel) pairs evaluated {}, live {}, "
+                 "unclamped {}, with maha > 0 {}; (entry, tile) reductions {}".format(*work))
+    kept = int(tile_cnt.sum())
+    n_distinct = int(torch.unique(patch_gsid[:kept]).numel()) if kept else 0
+    m = patch_gsid.numel()
+    n_pix = WIDTH * HEIGHT
+    nbytes = kept * 4 + tile_cnt.numel() * 8 + n_distinct * 9 * 4 + n_pix * 5 * 4 + 9 * 4 * m
+    return {"name": "K5 rasterize_bwd", "route": "cuda",
+            "source": "easygaussiansplatting_tpu_torch/csrc/rasterize_bwd.cu",
+            "replaces": "easygaussiansplatting_tpu/ops/pallas/kernels.py:260",
+            "max_abs_err": worst, **timing, **k5_bound(nbytes, work, clock_mhz, n_sm)}, lines
+
+
+def phase_k6(seen, flush, clock_mhz, n_sm):
+    (svals, flags), _, _ = seen["segmented_cumsum"]
+    got = scan.segmented_cumsum(svals, flags)
+    want = scan.segmented_cumsum_plain(svals, flags)
+    mag = scan.segmented_cumsum_plain(svals.abs(), flags)
+    err = (got - want).abs()
+    n_bad = int((err > K6_RTOL * mag + 1e-12).sum())
+    worst = float(err.max())
+    lines = [f"K6 on the step's sorted rows {tuple(svals.shape)}, {int(flags.sum())} segments: "
+             f"max_abs_err {worst:.3e}, beyond {K6_RTOL}*running|sum|: {n_bad}"]
+    require(n_bad == 0, "K6 differs from its plain version beyond tolerance")
+    # the yardstick for the whole reduce (sort, K6, gathers): one index_add_
+    # of the same per-patch rows onto the gaussians; the port never calls it
+    (table, gsid, *_), _, rows = seen["rasterize_bwd"]
+    n = table.shape[0]
+    idx = torch.where(gsid >= 0, gsid, n).long()
+    rows_t = rows.T.contiguous()
+    timing = timings(lambda: scan.segmented_cumsum(svals, flags),
+                     lambda: scan.segmented_cumsum_plain(svals, flags), clock_mhz, flush,
+                     library=lambda: torch.zeros((n + 1, 9), device=rows_t.device).index_add_(
+                         0, idx, rows_t))
+    m = svals.shape[1]
+    return {"name": "K6 segmented_cumsum", "route": "cuda",
+            "source": "easygaussiansplatting_tpu_torch/csrc/seg_scan.cu",
+            "replaces": "easygaussiansplatting_tpu/ops/pallas/scan.py:74",
+            "max_abs_err": worst, **timing,
+            **bound(m * (9 * 4 * 2 + 4), svals.numel(), 0, clock_mhz, n_sm)}, lines
 
 
 def phase_cli():
@@ -431,6 +782,13 @@ def phase_cli():
     require(res.returncode == 0, f"render CLI failed:\n{res.stdout}\n{res.stderr}")
     require(out.exists() and out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", "CLI wrote no PNG")
     return [f"CLI: {res.stdout.strip().splitlines()[-1]}"]
+
+
+def print_timing(entry):
+    lib = "none" if entry["library_ms"] is None else f"{entry['library_ms']:.4f} ms"
+    print(f"{entry['name']}: {entry['ms']:.4f} ms by CUDA events ({entry['call_ms']:.4f} ms "
+          f"per call with the host's launch work), plain {entry['plain_ms']:.4f} ms, library "
+          f"{lib}, bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}", flush=True)
 
 
 def main():
@@ -466,14 +824,26 @@ def main():
         entry["launches"] = launches[entry["name"]]
         for line in lines:
             print(line, flush=True)
-        lib = "none" if entry["library_ms"] is None else f"{entry['library_ms']:.4f} ms"
-        print(f"{entry['name']}: {entry['ms']:.4f} ms by CUDA events ({entry['call_ms']:.4f} ms "
-              f"per call with the host's launch work), plain {entry['plain_ms']:.4f} ms, library "
-              f"{lib}, bound {entry['bound_ms']:.4f} ms by {entry['bound_by']}", flush=True)
+        print_timing(entry)
         kernels.append(entry)
 
-    for line in phase_render_profile(render_once, wall_ms):
+    for line in phase_profile("render", render_once, wall_ms, RENDER_GROUPS):
         print(line, flush=True)
+
+    train_launches, lines, (pool, cams, gts, cfg) = phase_train(device)
+    for line in lines:
+        print(line, flush=True)
+    for line in phase_step_compare(pool, cams[0], gts[0], cfg):
+        print(line, flush=True)
+    seen = step_inputs(pool, cams[0], gts[0], cfg)
+    for phase in (phase_k2, phase_k5, phase_k6):
+        entry, lines = phase(seen, flush, clock_mhz, n_sm)
+        entry["launches"] = train_launches[entry["name"]]
+        for line in lines:
+            print(line, flush=True)
+        print_timing(entry)
+        kernels.append(entry)
+    kernels.sort(key=lambda e: e["name"])
 
     for line in phase_cli():
         print(line, flush=True)

@@ -9,11 +9,14 @@ first use and bound through ``ctypes`` (``ops/kernels/_build.py``). Each
 kernel keeps a plain PyTorch version beside it: a wrapper takes the plain
 version for CPU tensors and launches the kernel for CUDA tensors.
 
-Ported so far (the forward render path):
-  utils/sh.py, models/camera.py, models/convert.py, data/fixtures.py,
+Ported so far (the forward render path and the single-camera training
+step):
+  utils/{sh,activations,quaternion,schedule}.py, models/camera.py,
+  models/gaussians.py, models/convert.py, data/fixtures.py,
   data/synthetic.py, data/gau_io.py (load side), ops/stages.py,
   ops/binning.py, ops/blend.py, ops/rasterize_tiled.py, ops/rasterize.py,
-  ops/kernels/{preprocess,scan,rasterize}.py, render.py (CLI).
+  ops/loss.py, ops/kernels/{preprocess,scan,rasterize}.py,
+  train/{config,optimizer,density,loop}.py, render.py (CLI).
 
 This package never imports jax nor easygaussiansplatting_tpu; only the tests
 import both.

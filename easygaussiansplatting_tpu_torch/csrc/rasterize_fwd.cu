@@ -28,6 +28,9 @@
 // of MB. Early exit per pixel and per block keeps the evaluated pairs near
 // what the data needs.
 //
+// The alpha' evaluation and the row staging live in blend.cuh, shared with
+// the backward (rasterize_bwd.cu), which must replay these decisions exactly.
+//
 // Contract (ops/rasterize_ref.py, kernels.py): alpha' = min(0.99, alpha *
 // exp(-0.5 * max(0, maha))); skip alpha' < 0.002; an entry contributes iff
 // the tau before it is >= 1e-4; contrib is the 1-based position in the tile's
@@ -36,13 +39,11 @@
 
 #include <cuda_runtime.h>
 
+#include "blend.cuh"
+
 namespace {
 
-constexpr int TILE = 16;
-constexpr int THREADS = TILE * TILE;
-constexpr float ALPHA_CLAMP = 0.99f;
-constexpr float ALPHA_SKIP = 0.002f;
-constexpr float TAU_STOP = 1e-4f;
+using namespace egs_blend;
 
 // table rows: ux uy ca cb | cc alpha r g | b ... (ld floats per row, ld % 4 == 0)
 __global__ void __launch_bounds__(THREADS)
@@ -77,29 +78,13 @@ rasterize_fwd_kernel(const float* __restrict__ table, int ld,
     if (__syncthreads_count(done) == THREADS) break;
     const int j = b0 + tid;
     if (j < cnt) {
-      const int g = patch_gsid[start + j];
-      if (g >= 0) {
-        const float4* row = reinterpret_cast<const float4*>(table + (size_t)g * ld);
-        const float4 r0 = row[0], r1 = row[1];
-        const float b = table[(size_t)g * ld + 8];
-        s_xy[tid] = make_float2(r0.x - ox, r0.y - oy);
-        s_conic[tid] = make_float4(r0.z, r0.w, r1.x, r1.y);
-        s_rgb[tid] = make_float4(r1.z, r1.w, b, 0.0f);
-      } else {
-        s_xy[tid] = make_float2(0.0f, 0.0f);
-        s_conic[tid] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // alpha 0: skipped
-        s_rgb[tid] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      }
+      load_entry(table, ld, patch_gsid[start + j], ox, oy, &s_xy[tid], &s_conic[tid],
+                 &s_rgb[tid]);
     }
     __syncthreads();
     const int nb = min(THREADS, cnt - b0);
     for (int k = 0; k < nb && !done; ++k) {
-      const float2 xy = s_xy[k];
-      const float4 q = s_conic[k];
-      const float dx = xy.x - fx;
-      const float dy = xy.y - fy;
-      const float maha = q.x * dx * dx + q.z * dy * dy + 2.0f * q.y * dx * dy;
-      const float ap = fminf(ALPHA_CLAMP, q.w * expf(-0.5f * fmaxf(0.0f, maha)));
+      const float ap = blend_alpha(s_xy[k], s_conic[k], fx, fy).ap;
       if (ap < ALPHA_SKIP) continue;
       const float w = tau * ap;
       const float4 col = s_rgb[k];

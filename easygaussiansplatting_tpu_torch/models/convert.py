@@ -1,15 +1,20 @@
-"""Carrying a scene across from the JAX package's numpy arrays.
+"""Carrying a scene and a training state across from the JAX package's
+numpy arrays.
 
-The tests feed both packages the same scene: the JAX package's parameter
-arrays (``pws``, ``shs``, ``alphas``, ``scales``, ``rots`` as numpy) become
-float32 tensors here, and a JAX camera's numpy leaves (or a camera dict)
-become the port's :class:`Camera`.
+The tests feed both packages the same scene and state: the JAX package's
+parameter arrays (``pws``, ``shs``, ``alphas``, ``scales``, ``rots`` as
+numpy) become float32 tensors here, a JAX camera's numpy leaves (or a camera
+dict) become the port's :class:`Camera`, and the leaves of a JAX
+``GaussianPool``, ``AdamState`` and ``DensityStats`` become the port's.
 """
 
 import numpy as np
 import torch
 
 from easygaussiansplatting_tpu_torch.models.camera import Camera
+from easygaussiansplatting_tpu_torch.models.gaussians import GROUPS, GaussianPool
+from easygaussiansplatting_tpu_torch.train.density import DensityStats
+from easygaussiansplatting_tpu_torch.train.optimizer import AdamState
 from easygaussiansplatting_tpu_torch.utils.device import resolve_device
 
 PARAM_KEYS = ("pws", "shs", "alphas", "scales", "rots")
@@ -45,3 +50,31 @@ def camera_from_numpy(cam):
         "width": int(cam.width), "height": int(cam.height),
         "id": int(np.asarray(getattr(cam, "id", 0))),
     })
+
+
+def _tensor(a, dev, dtype=np.float32):
+    """A copy (the state is updated in place; it must not alias the source)."""
+    return torch.from_numpy(np.array(a, dtype)).to(dev)
+
+
+def pool_from_numpy(leaves, device="cuda"):
+    """{pws, low_shs, high_shs, alphas_raw, scales_raw, rots_raw, alive} (the
+    leaves of a JAX ``GaussianPool``, numpy-convertible) -> the port's
+    :class:`GaussianPool` on ``device``."""
+    dev = resolve_device(device)
+    return GaussianPool(*(_tensor(leaves[k], dev) for k in GROUPS),
+                        alive=_tensor(leaves["alive"], dev, bool))
+
+
+def adam_state_from_numpy(count, mu, nu, device="cuda"):
+    """A JAX ``AdamState``'s count and its mu / nu dicts of numpy-convertible
+    arrays -> the port's :class:`AdamState` on ``device``."""
+    dev = resolve_device(device)
+    return AdamState(count=int(count), mu={k: _tensor(v, dev) for k, v in mu.items()},
+                     nu={k: _tensor(v, dev) for k, v in nu.items()})
+
+
+def density_stats_from_numpy(grad_accum, cunt, device="cuda"):
+    """A JAX ``DensityStats``'s leaves -> the port's on ``device``."""
+    dev = resolve_device(device)
+    return DensityStats(grad_accum=_tensor(grad_accum, dev), cunt=_tensor(cunt, dev, np.int32))

@@ -17,7 +17,10 @@ exactly; what changed is how some of them are computed:
   the count equals it, drop-deepest truncation included, since exactly the
   slots below the kept count carry a tile id below ``n_tiles``;
 * the (tile, slot) key packing becomes a stable sort on the tile id: the
-  slots are already in (depth, row, tile) order.
+  slots are already in (depth, row, tile) order;
+* ``gsid_counts`` inverts the depth permutation with an index write (the
+  JAX package sorts (order, counts) pairs): ``order`` is a permutation, so
+  the indices are unique.
 
 Overflow policy: if the patch count exceeds ``max_patches`` (or the row count
 ``max_rows``), the patches of the *deepest* Gaussians are dropped and
@@ -73,7 +76,8 @@ def _propagate_marks(starts, values, budget):
 
 
 def bin_gaussians(us, depths, areas, valid, *, width, height, max_patches,
-                  max_rows=None, cinv2ds=None, alphas=None, use_kernels=True):
+                  max_rows=None, cinv2ds=None, alphas=None, gsid_counts=False,
+                  use_kernels=True):
     """Build the per-tile draw lists (see the JAX ``bin_gaussians``).
 
     Pass ``cinv2ds`` [N,3] conics + ``alphas`` [N] for ellipse row culling:
@@ -90,6 +94,9 @@ def bin_gaussians(us, depths, areas, valid, *, width, height, max_patches,
       n_dropped   — patches beyond the patch budget.
       total_rows  — AABB-covered tile-rows.
       rows_dropped — tile-rows beyond the row budget.
+      gsid_counts [N] — with ``gsid_counts=True`` only: each gaussian's
+                  kept patch count, in gaussian id order (the backward's
+                  gradient reduce reads segment ends from its cumsum).
     """
     cumsum = scan.multi_cumsum if use_kernels else scan.multi_cumsum_plain
     if max_rows is None:
@@ -195,7 +202,7 @@ def bin_gaussians(us, depths, areas, valid, *, width, height, max_patches,
     tile_sorted, perm = torch.sort(tile_id, stable=True)
     gsid_sorted = gsid[perm]
 
-    return {
+    out = {
         "patch_gsid": gsid_sorted,
         "patch_tile": tile_sorted,
         "tile_start": tile_start,
@@ -205,6 +212,18 @@ def bin_gaussians(us, depths, areas, valid, *, width, height, max_patches,
         "total_rows": total_rows,
         "rows_dropped": total_rows - torch.clamp(total_rows, max=max_rows),
     }
+    if gsid_counts:
+        # A depth-sorted gaussian's patches are the expansion slots
+        # [wcum_excl(rstart), wcum_excl(rstart + rows)), clipped to the row
+        # and patch budgets as the expansion clips them.
+        wcum_pad = torch.cat([wcum.new_zeros(1), wcum])
+        lo_cnt = torch.minimum(wcum_pad[torch.clamp(rstart, 0, max_rows).long()], kept)
+        hi_cnt = torch.minimum(
+            wcum_pad[torch.clamp(rstart + row_counts, 0, max_rows).long()], kept)
+        counts = torch.empty(n, dtype=i32, device=dev)
+        counts[order.long()] = (hi_cnt - lo_cnt).to(i32)
+        out["gsid_counts"] = counts
+    return out
 
 
 def dense_tile_lists(binning, *, max_per_tile):

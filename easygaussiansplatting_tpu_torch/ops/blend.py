@@ -1,11 +1,11 @@
-"""Chunked front-to-back alpha blending math on [..., K, P] blocks.
+"""Chunked alpha blending math on [..., K, P] blocks, forward and backward.
 
-Port of the forward half of easygaussiansplatting_tpu/ops/blend.py
-(``chunk_alpha``, ``blend_chunk_fwd`` and the constants). With
-ops/rasterize_tiled.py it is the plain version of kernel K4
-(csrc/rasterize_fwd.cu). The per-pixel sequential recurrence of the
-reference's draw kernel is re-expressed over a chunk of K depth-ordered
-entries at once:
+Port of easygaussiansplatting_tpu/ops/blend.py (``chunk_alpha``,
+``blend_chunk_fwd``, ``blend_chunk_bwd`` and the constants). With
+ops/rasterize_tiled.py it is the plain version of kernels K4
+(csrc/rasterize_fwd.cu) and K5 (csrc/rasterize_bwd.cu). The per-pixel
+sequential recurrence of the reference's draw kernel is re-expressed over a
+chunk of K depth-ordered entries at once:
 
   tau_ex[k] = tau_in * prod_{j<k} (1 - alpha'_j)
   color    += sum_k contribute_k * tau_ex[k] * alpha'_k * c_k
@@ -65,3 +65,55 @@ def blend_chunk_fwd(tau_in, us_k, cinv_k, alpha_k, color_k, mask_k, px, py):
     k_idx = torch.arange(1, ap.shape[-2] + 1, dtype=torch.int32, device=ap.device)[:, None]
     cont_local = torch.amax(torch.where(contribute, k_idx, 0), dim=-2)
     return color_add, tau_out, cont_local.to(torch.int32)
+
+
+def _suffix(x, op):
+    """Inclusive suffix ``op`` (cumsum / cumprod) along the entry axis."""
+    return torch.flip(op(torch.flip(x, [-2]), dim=-2), [-2])
+
+
+def blend_chunk_bwd(tau_end, gag, g, offset, contrib, us_k, cinv_k, alpha_k, color_k,
+                    mask_k, px, py):
+    """One backward chunk; chunks are visited back to front (docs/backward.md
+    B.1-B.4, as the Pallas ``backward_kernel`` evaluates them).
+
+    tau_end [..., P]: transmittance after this chunk's last entry; gag
+    [..., P]: g . (blended colour of every later entry); g [..., 3, P]:
+    dL/dpixel; offset: the tile-list position of the chunk's first entry;
+    contrib [..., P] int32: the forward's contributor counts; the rest as in
+    :func:`chunk_alpha`, with the means in tile-local coordinates.
+
+    Returns (grads [..., K, 9]: d ux, uy, conic a, b, c, alpha, r, g, b;
+    tau_start [..., P], gag_start [..., P]) for the next (shallower) chunk.
+    """
+    k = us_k.shape[-2]
+    ap, (dx, dy, maha_raw) = chunk_alpha(us_k, cinv_k, alpha_k, mask_k, px, py)
+    idx = offset + torch.arange(k, device=ap.device)[:, None]  # [K,1]
+    m = (idx < contrib[..., None, :]) & (ap >= ALPHA_SKIP)
+    # transmittance in front of each entry, by division (B.2.1)
+    sfx = _suffix(torch.where(m, 1.0 - ap, 1.0), torch.cumprod)
+    tau_ex = tau_end[..., None, :] / sfx
+    contr = torch.where(m, tau_ex * ap, 0.0)  # blend weights
+    cg = (color_k[..., 0:1] * g[..., None, 0, :] + color_k[..., 1:2] * g[..., None, 1, :]
+          + color_k[..., 2:3] * g[..., None, 2, :])  # g . c per (entry, pixel)
+    cgw = contr * cg
+    behind = _suffix(cgw, torch.cumsum)
+    gg = behind - cgw + gag[..., None, :]  # g . G, the colour behind (B.2.2)
+    dap = torch.where(m, tau_ex * cg - gg / torch.clamp(1.0 - ap, min=1e-6), 0.0)  # B.1.2
+    live = m & (ap < ALPHA_CLAMP)  # the 0.99 clamp passes no gradient (B.3)
+    dap_ap = torch.where(live, dap * ap, 0.0)
+    dalpha = dap_ap.sum(-1) / torch.clamp(alpha_k, min=1e-12)
+    dm = torch.where(live & (maha_raw > 0.0), -0.5 * dap_ap, 0.0)  # d loss / d maha
+    ex, ey = (dm * dx).sum(-1), (dm * dy).sum(-1)
+    a, b, c = cinv_k[..., 0], cinv_k[..., 1], cinv_k[..., 2]
+    grads = torch.stack([
+        2.0 * a * ex + 2.0 * b * ey,
+        2.0 * c * ey + 2.0 * b * ex,
+        (dm * dx * dx).sum(-1),
+        2.0 * (dm * dx * dy).sum(-1),
+        (dm * dy * dy).sum(-1),
+        dalpha,
+    ], dim=-1)
+    dcolor = torch.matmul(contr, g.transpose(-1, -2))  # [..., K, 3] (B.5.1)
+    return (torch.cat([grads, dcolor], dim=-1), tau_end / sfx[..., 0, :],
+            gag + behind[..., 0, :])

@@ -42,9 +42,12 @@ _L = ctypes.c_longlong
 # C entry point -> argument types (every entry returns cudaError_t as int)
 SIGNATURES = {
     "egs_preprocess_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "egs_preprocess_bwd": [_P] * 13 + [_I, _I, _P],
     "egs_multi_cumsum_i32": [_P, _P, _P, _I, _L, _I, _P],
     "egs_multi_cumsum_f32": [_P, _P, _P, _I, _L, _I, _P],
+    "egs_segmented_cumsum_f32": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
     "egs_rasterize_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "egs_rasterize_bwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
 }
 
 

@@ -1,15 +1,21 @@
-"""K1: fused preprocess forward (stages 1-5 in one kernel).
+"""K1 and K2: the fused preprocess (stages 1-5 in one kernel) and its VJP.
 
-Port of easygaussiansplatting_tpu/ops/pallas/preprocess.py, forward only
-(``fused_preprocess``, ``_forward_rows``). The kernel is
-``csrc/preprocess.cu``; its plain version is ops/stages.py, assembled into the
-same table by :func:`preprocess_plain`.
+Port of easygaussiansplatting_tpu/ops/pallas/preprocess.py (``_fwd_kernel``,
+``_bwd_kernel``, ``_fused``, ``fused_preprocess``, ``offset_table``). The
+forward kernel is ``csrc/preprocess.cu``; its plain version is
+ops/stages.py, assembled into the same table by :func:`preprocess_plain`.
+The backward kernel is ``csrc/preprocess_bwd.cu``; its plain version is the
+autograd VJP of that chain (:func:`preprocess_bwd_plain`).
+:class:`PreprocessFunction` joins the two under autograd.
 
 Both write one table row per gaussian (``TABLE_COLS`` = 12 floats):
   0 ux, 1 uy, 2-4 conic (a, b, c), 5 alpha, 6-8 rgb, 9 depth, 10-11 extents.
-The stage-6 kernel (ops/kernels/rasterize.py) gathers rows of this table by
+The stage-6 kernels (ops/kernels/rasterize.py) gather rows of this table by
 patch gaussian id; the public :func:`fused_preprocess` dict holds views of it
-under the names the JAX package uses.
+under the names the JAX package uses. Only the first ``LIVE_COLS`` = 9
+columns carry a gradient: depth and the extents feed binning and the
+visibility mask, which take none. The camera takes no gradient either, as in
+the JAX package.
 """
 
 import ctypes
@@ -22,6 +28,7 @@ from easygaussiansplatting_tpu_torch.ops.kernels import _build
 from easygaussiansplatting_tpu_torch.utils.sh import SH_CONSTS
 
 TABLE_COLS = 12
+LIVE_COLS = 9  # ux uy, conic, alpha, rgb: the columns that take a gradient
 CAM_LEN = 21  # Rcw(9) tcw(3) twc(3) fx fy cx cy limx limy
 _SH_CONSTS = (ctypes.c_float * len(SH_CONSTS))(*np.asarray(SH_CONSTS, np.float32))
 
@@ -93,19 +100,14 @@ def preprocess_fwd(pws, shs, alphas, scales, rots, cam, sh_degree=3):
 preprocess_fwd.launches = 0
 
 
-def fused_preprocess(pws, shs, alphas, scales, rots, cam, alive=None, sh_degree=3):
-    """Drop-in for stages.preprocess on the kernel path.
-
-    Returns the JAX ``fused_preprocess`` dict (us, cinv2ds, colors, alphas,
-    depths, areas, valid) plus ``table``, the [N, TABLE_COLS] table the
-    stage-6 kernel reads; the named entries are views of it."""
-    table = preprocess_fwd(pws, shs, alphas, scales, rots, cam, sh_degree)
+def table_views(table, alphas, alive=None):
+    """The JAX ``fused_preprocess`` dict (us, cinv2ds, colors, alphas,
+    depths, areas, valid) as views of the [N, TABLE_COLS] table."""
     depths = table[:, 9]
     valid = depths >= stages.MIN_DEPTH
     if alive is not None:
         valid = valid & alive
     return {
-        "table": table,
         "us": table[:, 0:2],
         "cinv2ds": table[:, 2:5],
         "colors": table[:, 6:9],
@@ -114,3 +116,79 @@ def fused_preprocess(pws, shs, alphas, scales, rots, cam, alive=None, sh_degree=
         "areas": table[:, 10:12],
         "valid": valid,
     }
+
+
+def fused_preprocess(pws, shs, alphas, scales, rots, cam, alive=None, sh_degree=3):
+    """Drop-in for stages.preprocess on the kernel path (no gradient).
+
+    Returns :func:`table_views` plus ``table``, the [N, TABLE_COLS] table the
+    stage-6 kernel reads."""
+    table = preprocess_fwd(pws, shs, alphas, scales, rots, cam, sh_degree)
+    return {"table": table, **table_views(table, alphas, alive)}
+
+
+def offset_table(table, us_offset):
+    """Shift the table's screen coordinates (columns 0:2) by the
+    densification ``us_offset`` [N, 2] (or None); returns (table, us)."""
+    if us_offset is not None:
+        table = table + torch.nn.functional.pad(us_offset, (0, TABLE_COLS - 2))
+    return table, table[:, 0:2]
+
+
+def preprocess_bwd_plain(pws, shs, alphas, scales, rots, dtable, cam, sh_degree=3):
+    """Plain PyTorch version of K2: the autograd VJP of the plain K1 chain
+    from the cotangent of the table's live columns. Returns (d_pws, d_shs,
+    d_alphas, d_scales, d_rots)."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (pws, shs, alphas, scales, rots)]
+        table = preprocess_plain(*inputs, cam, sh_degree)
+        return torch.autograd.grad(table[:, :LIVE_COLS], inputs, dtable[:, :LIVE_COLS])
+
+
+def preprocess_bwd(pws, shs, alphas, scales, rots, dtable, cam, sh_degree=3):
+    """K2 wrapper: the VJP of K1 from ``dtable`` [N, TABLE_COLS] (columns
+    LIVE_COLS and up are ignored) to (d_pws, d_shs, d_alphas, d_scales,
+    d_rots). CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    n = _check_params(pws, shs, alphas, scales, rots)
+    n_bases = stages.sh_bases(shs.shape[1], sh_degree)
+    if (dtable.dtype != torch.float32 or tuple(dtable.shape) != (n, TABLE_COLS)
+            or not dtable.is_contiguous() or dtable.device != pws.device):
+        raise ValueError(f"dtable must be contiguous float32 [{n}, {TABLE_COLS}] on "
+                         f"{pws.device}, got {dtable.dtype} {tuple(dtable.shape)} on "
+                         f"{dtable.device}")
+    if pws.device.type == "cpu":
+        return preprocess_bwd_plain(pws, shs, alphas, scales, rots, dtable, cam, sh_degree)
+    if pws.device.type != "cuda":
+        raise ValueError(f"unsupported device {pws.device}")
+    grads = tuple(torch.empty_like(t) for t in (pws, shs, alphas, scales, rots))
+    camv = (ctypes.c_float * CAM_LEN)(*camera_vector(cam))
+    _build.check(_build.library().egs_preprocess_bwd(
+        pws.data_ptr(), shs.data_ptr(), alphas.data_ptr(), scales.data_ptr(),
+        rots.data_ptr(), dtable.data_ptr(), ctypes.cast(camv, ctypes.c_void_p),
+        ctypes.cast(_SH_CONSTS, ctypes.c_void_p), *(g.data_ptr() for g in grads), n,
+        n_bases, _build.stream_ptr(pws)), "egs_preprocess_bwd")
+    preprocess_bwd.launches += 1
+    return grads
+
+
+preprocess_bwd.launches = 0
+
+
+class PreprocessFunction(torch.autograd.Function):
+    """table = K1(params), with K2 as its backward. ``use_kernels=False``
+    runs the plain versions on any device (the all-plain path)."""
+
+    @staticmethod
+    def forward(ctx, pws, shs, alphas, scales, rots, cam, sh_degree, use_kernels):
+        fwd = preprocess_fwd if use_kernels else preprocess_plain
+        table = fwd(pws, shs, alphas, scales, rots, cam, sh_degree)
+        ctx.save_for_backward(pws, shs, alphas, scales, rots)
+        ctx.cam, ctx.sh_degree, ctx.use_kernels = cam, sh_degree, use_kernels
+        return table
+
+    @staticmethod
+    def backward(ctx, dtable):
+        bwd = preprocess_bwd if ctx.use_kernels else preprocess_bwd_plain
+        grads = bwd(*ctx.saved_tensors, dtable.contiguous(), ctx.cam, ctx.sh_degree)
+        return (*grads, None, None, None)

@@ -1,12 +1,14 @@
-"""K3: multi-row inclusive cumulative sum.
+"""K3 and K6: multi-row inclusive cumulative sums, plain and segmented.
 
 Port of easygaussiansplatting_tpu/ops/pallas/scan.py (``multi_cumsum``,
-``batched_cumsum``). The kernel is ``csrc/scan.cu``; its plain version is
-``torch.cumsum`` along axis 1 with the input's dtype kept (torch would widen
-int32 to int64 unless told otherwise; the JAX ints stay int32).
+``batched_cumsum``, ``segmented_cumsum``). K3's kernel is ``csrc/scan.cu``;
+its plain version is ``torch.cumsum`` along axis 1 with the input's dtype
+kept (torch would widen int32 to int64 unless told otherwise; the JAX ints
+stay int32). K6's kernel is ``csrc/seg_scan.cu``; its plain version is
+:func:`segmented_cumsum_plain`.
 
-Unlike the Pallas kernel, which needs a length that is a multiple of its
-16,384-lane block, the CUDA kernel takes any length.
+Unlike the Pallas kernels, which need a length that is a multiple of their
+16,384-lane block, the CUDA kernels take any length.
 """
 
 import torch
@@ -14,7 +16,7 @@ import torch
 from easygaussiansplatting_tpu_torch.ops.kernels import _build
 
 MAX_ROWS = 8
-TILE = 2048  # elements per block of csrc/scan.cu (THREADS * ITEMS)
+TILE = 2048  # elements per block of csrc/scan.cu and csrc/seg_scan.cu (THREADS * ITEMS)
 _ENTRY = {torch.int32: "egs_multi_cumsum_i32", torch.float32: "egs_multi_cumsum_f32"}
 
 
@@ -59,3 +61,50 @@ def batched_cumsum(arrays, cumsum=multi_cumsum):
     (one kernel launch; ``multi_cumsum_plain`` for the plain version)."""
     out = cumsum(torch.stack(arrays, dim=0))
     return [out[i] for i in range(len(arrays))]
+
+
+def segmented_cumsum_plain(vals, flags):
+    """Plain PyTorch version of K6: a float64 cumsum minus the running total
+    where each segment starts (the start positions carried forward by a
+    cummax), cast back to float32. In float64 no cross-segment cancellation
+    reaches the float32 result."""
+    m = vals.shape[1]
+    idx = torch.arange(m, device=vals.device)
+    seg_start = torch.cummax(torch.where(flags != 0, idx, 0), dim=0).values
+    c = torch.cumsum(vals.double(), dim=1)
+    return (c - (c - vals.double())[:, seg_start]).to(vals.dtype)
+
+
+def segmented_cumsum(vals, flags):
+    """Inclusive segmented cumsum along axis 1 of an [R, M] float32 tensor
+    (any R and M); ``flags`` [M] int32, nonzero where a segment starts
+    (element 0 always starts one). CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if vals.dtype != torch.float32 or vals.dim() != 2:
+        raise ValueError(f"segmented_cumsum takes float32 [R, M], got {vals.dtype} "
+                         f"{tuple(vals.shape)}")
+    if flags.dtype != torch.int32 or tuple(flags.shape) != (vals.shape[1],):
+        raise ValueError(f"flags must be int32 [{vals.shape[1]}], got {flags.dtype} "
+                         f"{tuple(flags.shape)}")
+    if not (vals.is_contiguous() and flags.is_contiguous()) or flags.device != vals.device:
+        raise ValueError("segmented_cumsum needs contiguous tensors on one device")
+    if vals.device.type == "cpu":
+        return segmented_cumsum_plain(vals, flags)
+    if vals.device.type != "cuda":
+        raise ValueError(f"unsupported device {vals.device}")
+    r, m = vals.shape
+    out = torch.empty_like(vals)
+    if r == 0 or m == 0:
+        return out
+    n_blocks = -(-m // TILE)
+    sums = torch.empty((r, n_blocks), dtype=torch.float32, device=vals.device)
+    bflags = torch.empty(n_blocks, dtype=torch.int32, device=vals.device)
+    _build.check(_build.library().egs_segmented_cumsum_f32(
+        vals.data_ptr(), flags.data_ptr(), out.data_ptr(), sums.data_ptr(),
+        bflags.data_ptr(), r, m, n_blocks, _build.stream_ptr(vals)),
+        "egs_segmented_cumsum_f32")
+    segmented_cumsum.launches += 1
+    return out
+
+
+segmented_cumsum.launches = 0

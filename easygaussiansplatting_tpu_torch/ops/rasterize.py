@@ -1,24 +1,37 @@
-"""Render API with a selectable stage-6 backend.
+"""Render API with a selectable stage-6 backend, differentiable.
 
 Port of easygaussiansplatting_tpu/ops/rasterize.py (``resolve_backend``,
-``raster_from_aux``, ``render``), forward only: the render runs under
-``torch.no_grad()``.
+``raster_from_aux``, ``render``).
 
 Backends:
   "cuda"  — the hand-written kernels: K1 preprocess, K3 cumsums inside
-            binning, K4 blend. CUDA tensors only.
-  "tiled" — the plain PyTorch versions of all three (ops/stages.py,
-            torch.cumsum, ops/rasterize_tiled.py), on any device.
+            binning, K4 blend, and for gradients K2, K5 and K6. CUDA
+            tensors only.
+  "tiled" — the plain PyTorch versions of all of them (ops/stages.py,
+            torch.cumsum, ops/rasterize_tiled.py, the autograd VJP of the
+            stages), on any device.
   "auto"  — "cuda" for CUDA tensors, "tiled" for CPU tensors.
+
+Both backends run the same two ``autograd.Function``s,
+:class:`PreprocessFunction` and :class:`RasterizeFunction`, with the kernels
+or their plain versions inside. With ``need_grads=True`` (the default, as in
+JAX) the render builds the autograd graph, and binning also returns the
+per-gaussian patch counts the backward's gradient reduce reads;
+``need_grads=False`` renders under ``torch.no_grad()``. Binning's inputs
+are detached, as the JAX ones are ``stop_gradient``: its integer outputs
+take no gradient.
 """
 
 import torch
 
-from easygaussiansplatting_tpu_torch.ops import stages
 from easygaussiansplatting_tpu_torch.ops.binning import bin_gaussians
-from easygaussiansplatting_tpu_torch.ops.kernels.preprocess import fused_preprocess
-from easygaussiansplatting_tpu_torch.ops.kernels.rasterize import rasterize_fwd
-from easygaussiansplatting_tpu_torch.ops.rasterize_tiled import rasterize_tiled
+from easygaussiansplatting_tpu_torch.ops.kernels.preprocess import (
+    PreprocessFunction,
+    offset_table,
+    pack_table,
+    table_views,
+)
+from easygaussiansplatting_tpu_torch.ops.kernels.rasterize import RasterizeFunction
 from easygaussiansplatting_tpu_torch.utils.device import resolve_device
 
 BACKENDS = ("auto", "cuda", "tiled")
@@ -39,32 +52,33 @@ def resolve_backend(backend, device):
 
 def raster_from_aux(us, cinv2ds, alphas, colors, depths, areas, valid, *,
                     width, height, backend="auto", max_patches=2**18, max_rows=None,
-                    table=None):
+                    need_grads=True, table=None):
     """Stage 6 alone: bin + rasterise already-preprocessed attributes in
     16x16 tiles. The "cuda" backend needs ``table``, the K1 table that
-    ``fused_preprocess`` returns.
+    ``fused_preprocess`` or :class:`PreprocessFunction` returns; the "tiled"
+    backend packs one from the attributes when none is given. With
+    ``need_grads`` the image's gradient flows into the table.
 
     Returns (image [3,H,W], aux with contrib, final_tau, n_patches, binning).
     """
     backend = resolve_backend(backend, us.device)
     use_kernels = backend == "cuda"
-    if use_kernels and table is None:
-        raise ValueError("backend 'cuda' needs the K1 table from fused_preprocess")
+    if table is None:
+        if use_kernels:
+            raise ValueError("backend 'cuda' needs the K1 table from fused_preprocess")
+        table = pack_table(us, cinv2ds, alphas, colors, depths, areas)
     binning = bin_gaussians(
-        us, depths, areas, valid, width=width, height=height,
+        us.detach(), depths.detach(), areas.detach(), valid, width=width, height=height,
         max_patches=max_patches, max_rows=max_rows,
         # skip-ellipse row culling: candidate set stays pixel-exact vs the
         # AABB while patches drop
-        cinv2ds=cinv2ds, alphas=alphas, use_kernels=use_kernels,
+        cinv2ds=cinv2ds.detach(), alphas=alphas.detach(), gsid_counts=need_grads,
+        use_kernels=use_kernels,
     )
-    gsid, start, cnt = binning["patch_gsid"], binning["tile_start"], binning["tile_cnt"]
-    if use_kernels:
-        image, final_tau, contrib = rasterize_fwd(table, gsid, start, cnt,
-                                                  width=width, height=height)
-    else:
-        image, taux = rasterize_tiled(us, cinv2ds, alphas, colors, gsid, start, cnt,
-                                      width=width, height=height)
-        final_tau, contrib = taux["final_tau"], taux["contrib"]
+    with torch.set_grad_enabled(need_grads and torch.is_grad_enabled()):
+        image, final_tau, contrib = RasterizeFunction.apply(
+            table, binning["patch_gsid"], binning["tile_start"], binning["tile_cnt"],
+            binning.get("gsid_counts"), width, height, use_kernels)
     return image, {"contrib": contrib, "final_tau": final_tau,
                    "n_patches": binning["total"], "binning": binning}
 
@@ -73,15 +87,22 @@ def _as_param(x, dev):
     return torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
 
 
-def render(pws, shs, alphas, scales, rots, cam, alive=None, sh_degree=3,
-           backend="auto", max_patches=2**18, max_rows=None, device="cuda"):
+def render(pws, shs, alphas, scales, rots, cam, alive=None, us_offset=None, sh_degree=3,
+           backend="auto", max_patches=2**18, max_rows=None, need_grads=True,
+           device="cuda"):
     """Render one camera. Parameters may be numpy arrays or tensors; they
     are moved to ``device`` as float32 (``shs`` [N, 3*(deg+1)^2], ``alphas``
-    [N]). ``device`` defaults to "cuda" and raises when no CUDA device is
-    present; pass device="cpu" for the plain path on the CPU.
+    [N]); tensors already there keep their autograd history. ``device``
+    defaults to "cuda" and raises when no CUDA device is present; pass
+    device="cpu" for the plain path on the CPU.
 
-    Returns (image [3,H,W], aux dict): the preprocess outputs plus contrib,
-    final_tau, n_patches and binning.
+    ``us_offset`` [N, 2] (zeros) is added to the projected screen positions,
+    so the gradient of the loss with respect to it is the per-gaussian
+    screen-space gradient densification reads.
+
+    Returns (image [3,H,W], aux dict): the preprocess outputs (us, cinv2ds,
+    colors, alphas, depths, areas, valid) plus contrib, final_tau, n_patches
+    and binning.
     """
     dev = resolve_device(device)
     backend = resolve_backend(backend, dev)
@@ -91,18 +112,13 @@ def render(pws, shs, alphas, scales, rots, cam, alive=None, sh_degree=3,
     alphas = _as_param(alphas, dev).reshape(n)
     if alive is not None:
         alive = torch.as_tensor(alive, dtype=torch.bool, device=dev)
-    with torch.no_grad():
-        if backend == "cuda":
-            aux = fused_preprocess(pws, shs, alphas, scales, rots, cam, alive=alive,
-                                   sh_degree=sh_degree)
-            table = aux.pop("table")
-        else:
-            aux = stages.preprocess(pws, shs, alphas, scales, rots, cam, alive=alive,
-                                    sh_degree=sh_degree)
-            table = None
+    with torch.set_grad_enabled(need_grads and torch.is_grad_enabled()):
+        table = PreprocessFunction.apply(pws, shs, alphas, scales, rots, cam, sh_degree,
+                                         backend == "cuda")
+        table, _ = offset_table(table, us_offset)
+        aux = table_views(table, alphas, alive)
         image, raux = raster_from_aux(
-            aux["us"], aux["cinv2ds"], aux["alphas"], aux["colors"], aux["depths"],
-            aux["areas"], aux["valid"], width=cam.width, height=cam.height,
-            backend=backend, max_patches=max_patches, max_rows=max_rows, table=table,
-        )
+            *(aux[k] for k in ("us", "cinv2ds", "alphas", "colors", "depths", "areas", "valid")),
+            width=cam.width, height=cam.height, backend=backend, max_patches=max_patches,
+            max_rows=max_rows, need_grads=need_grads, table=table)
     return image, {**aux, **raux}

@@ -2,7 +2,11 @@
 
 Port of easygaussiansplatting_tpu/ops/rasterize_tiled.py (``rasterize_tiled``)
 and, with ops/blend.py, the plain version of kernel K4
-(csrc/rasterize_fwd.cu). Two differences from the JAX tiled rasteriser:
+(csrc/rasterize_fwd.cu). :func:`rasterize_tiled_bwd` is the plain version of
+kernel K5 (csrc/rasterize_bwd.cu): an explicit reverse replay, not autograd
+of the forward. (Autograd through the chunk loop would save several
+[T, K_CHUNK, 256] tensors for every chunk of the longest tile list: tens of
+GB at the bench size.) Two differences from the JAX tiled rasteriser:
 
 * it walks every chunk up to the largest ``tile_cnt``, so no tile list is
   truncated (the JAX version stops at ``n_chunks * k_chunk`` entries and
@@ -16,7 +20,7 @@ and, with ops/blend.py, the plain version of kernel K4
 import torch
 
 from easygaussiansplatting_tpu_torch.ops.binning import TILE
-from easygaussiansplatting_tpu_torch.ops.blend import blend_chunk_fwd
+from easygaussiansplatting_tpu_torch.ops.blend import blend_chunk_bwd, blend_chunk_fwd
 
 K_CHUNK = 64  # tile-list entries blended per step; any value gives the same result
 
@@ -27,6 +31,26 @@ def _untile(x_tp, gx, gy, tile, height, width):
     x = x_tp.reshape(gy, gx, tile, tile, *extra)
     x = x.transpose(1, 2).reshape(gy * tile, gx * tile, *extra)
     return x[:height, :width]
+
+
+def _tile(x_hw, gx, gy, tile, fill):
+    """[H, W, ...] -> [T, P, ...], pixels past the image set to ``fill``."""
+    h, w = x_hw.shape[:2]
+    x = torch.full((gy * tile, gx * tile, *x_hw.shape[2:]), fill, dtype=x_hw.dtype,
+                   device=x_hw.device)
+    x[:h, :w] = x_hw
+    x = x.reshape(gy, tile, gx, tile, *x_hw.shape[2:]).transpose(1, 2)
+    return x.reshape(gx * gy, tile * tile, *x_hw.shape[2:])
+
+
+def _geometry(width, height, dev, dtype):
+    gx = -(-width // TILE)
+    gy = -(-height // TILE)
+    t_idx = torch.arange(gx * gy, device=dev)
+    origin = torch.stack([(t_idx % gx) * TILE, (t_idx // gx) * TILE], dim=1).to(dtype)
+    lin = torch.arange(TILE * TILE, device=dev)
+    # tile-local pixel coordinates, row-major within the tile
+    return gx, gy, origin, (lin % TILE).to(dtype), (lin // TILE).to(dtype)
 
 
 def rasterize_tiled(us, cinv2ds, alphas, colors, patch_gsid, tile_start, tile_cnt,
@@ -40,19 +64,12 @@ def rasterize_tiled(us, cinv2ds, alphas, colors, patch_gsid, tile_start, tile_cn
     max_tile_cnt).
     """
     tile, k_chunk = TILE, K_CHUNK
-    gx = -(-width // tile)
-    gy = -(-height // tile)
+    dev, dtype = us.device, us.dtype
+    gx, gy, origin, px, py = _geometry(width, height, dev, dtype)
     n_tiles = gx * gy
     p = tile * tile
-    dev, dtype = us.device, us.dtype
     m_total = patch_gsid.shape[0]
     gsid_safe = torch.clamp(patch_gsid, min=0).long()
-
-    t_idx = torch.arange(n_tiles, device=dev)
-    origin = torch.stack([(t_idx % gx) * tile, (t_idx // gx) * tile], dim=1).to(dtype)
-    lin = torch.arange(p, device=dev)
-    px = (lin % tile).to(dtype)  # tile-local, row-major within the tile
-    py = (lin // tile).to(dtype)
 
     max_cnt = int(tile_cnt.max()) if n_tiles else 0
     n_chunks = -(-max_cnt // k_chunk)
@@ -79,3 +96,41 @@ def rasterize_tiled(us, cinv2ds, alphas, colors, patch_gsid, tile_start, tile_cn
         "max_tile_cnt": max_cnt,
     }
     return image.contiguous(), aux
+
+
+def rasterize_tiled_bwd(us, cinv2ds, alphas, colors, patch_gsid, tile_start, tile_cnt,
+                        g_image, final_tau, contrib, *, width, height):
+    """Stage-6 backward by reverse replay: walks every tile's list from its
+    last chunk to its first, carrying the transmittance (from the forward's
+    ``final_tau``) and g . (colour behind) per pixel.
+
+    g_image [3,H,W] is dL/dimage; final_tau [H,W] and contrib [H,W] are the
+    forward's. Returns the per-patch gradients [9, M] (d ux, uy, conic a, b,
+    c, alpha, r, g, b per patch slot; zero on padding slots and on entries no
+    pixel reached).
+    """
+    k_chunk = K_CHUNK
+    dev, dtype = us.device, us.dtype
+    gx, gy, origin, px, py = _geometry(width, height, dev, dtype)
+    m_total = patch_gsid.shape[0]
+    gsid_safe = torch.clamp(patch_gsid, min=0).long()
+    g_t = _tile(g_image.permute(1, 2, 0), gx, gy, TILE, 0.0).transpose(1, 2)  # [T,3,P]
+    tau = _tile(final_tau, gx, gy, TILE, 1.0)
+    cont = _tile(contrib, gx, gy, TILE, 0)
+    gag = torch.zeros_like(tau)
+    # one scratch row past the patches takes the writes of entries past a tile list
+    out = torch.zeros((m_total + 1, 9), dtype=dtype, device=dev)
+    max_cnt = int(cont.max()) if cont.numel() else 0  # no entry past it has a gradient
+    k_off = torch.arange(k_chunk, device=dev)
+    for c in reversed(range(-(-max_cnt // k_chunk))):
+        local = c * k_chunk + k_off[None, :]  # [1,K]
+        in_list = local < tile_cnt[:, None]
+        pidx = torch.clamp(tile_start[:, None].long() + local, 0, max(m_total - 1, 0))
+        ok = in_list & (patch_gsid[pidx] >= 0)  # [T,K]
+        gid = gsid_safe[pidx]
+        grads, tau, gag = blend_chunk_bwd(
+            tau, gag, g_t, c * k_chunk, cont, us[gid] - origin[:, None, :], cinv2ds[gid],
+            alphas[gid], colors[gid], ok, px, py,
+        )
+        out[torch.where(in_list, pidx, m_total).reshape(-1)] = grads.reshape(-1, 9)
+    return out[:m_total].T.contiguous()

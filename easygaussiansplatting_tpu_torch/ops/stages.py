@@ -1,7 +1,8 @@
 """Stages 1-5 of the splatting pipeline as plain, batched PyTorch functions.
 
 Port of easygaussiansplatting_tpu/ops/stages.py. This is the plain version of
-kernel K1 (ops/kernels/preprocess.py, csrc/preprocess.cu) and the CPU path.
+kernel K1 (ops/kernels/preprocess.py, csrc/preprocess.cu) and the CPU path;
+its autograd VJP is the plain version of kernel K2 (csrc/preprocess_bwd.cu).
 
 Every expression is evaluated in float32 in the order the JAX fused
 preprocess (``ops/pallas/preprocess.py::_forward_rows``) writes it: the short
@@ -12,7 +13,12 @@ the last bit wherever the device's division and square root are correctly
 rounded. Camera values enter as float32 scalars.
 
 All functions are total on padded pools: entries behind the camera
-(depth < MIN_DEPTH) produce finite outputs and are masked by ``valid``.
+(depth < MIN_DEPTH) produce finite outputs and are masked by ``valid``. They
+are differentiable and write nothing in place. The guards ``zsafe``,
+``det_safe`` and ``max(norm, 1e-12)`` are ``where``/``clamp`` selections whose
+discarded branch is finite, so they guard the gradient as they do in JAX:
+an entry behind the camera or with a degenerate determinant gets exactly
+zero from a zero cotangent, never NaN.
 """
 
 import numpy as np

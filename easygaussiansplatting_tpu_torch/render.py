@@ -65,7 +65,8 @@ def main(argv=None):
     shs = np.asarray(gs["shs"]).reshape(n, -1)
     degree = int(np.sqrt(max(1, shs.shape[1] // 3))) - 1
     img, _ = render(gs["pws"], shs, gs["alphas"], gs["scales"], gs["rots"], cam,
-                    sh_degree=degree, max_patches=args.max_patches, device=args.device)
+                    sh_degree=degree, max_patches=args.max_patches, need_grads=False,
+                    device=args.device)
     img = img.cpu().numpy()
     save_png(args.out, to_uint8(img))
     print(f"wrote {args.out} ({cam.width}x{cam.height}, device={args.device}, "

@@ -137,3 +137,53 @@ def sh_basis(xp, x, y, z, degree: int):
         SH_C5[10] * x * (xx * xx - 10.0 * xx * yy + 5.0 * yy * yy),
     ]
     return out
+
+
+class _Dual:
+    """A value and its gradient along (x, y, z), for forward-mode
+    differentiation of the basis polynomials; csrc/preprocess_bwd.cu
+    differentiates them the same way."""
+
+    __slots__ = ("v", "d")
+
+    def __init__(self, v, d):
+        self.v, self.d = v, d
+
+    @staticmethod
+    def lift(o):
+        return o if isinstance(o, _Dual) else _Dual(o, (0.0, 0.0, 0.0))
+
+    def __add__(self, o):
+        o = _Dual.lift(o)
+        return _Dual(self.v + o.v, tuple(a + b for a, b in zip(self.d, o.d)))
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        o = _Dual.lift(o)
+        return _Dual(self.v - o.v, tuple(a - b for a, b in zip(self.d, o.d)))
+
+    def __rsub__(self, o):
+        return _Dual.lift(o) - self
+
+    def __mul__(self, o):
+        o = _Dual.lift(o)
+        return _Dual(self.v * o.v, tuple(self.v * b + a * o.v for a, b in zip(self.d, o.d)))
+
+    __rmul__ = __mul__
+
+
+def sh_basis_grad(xp, x, y, z, degree: int):
+    """Gradients of the basis polynomials of degrees 0..degree (up to 5)
+    with respect to the direction components: a list of (dY/dx, dY/dy,
+    dY/dz) triples in :func:`sh_basis` order, each shaped like ``x``."""
+
+    class _NS:
+        @staticmethod
+        def ones_like(d):
+            return _Dual(xp.ones_like(d.v), (0.0, 0.0, 0.0))
+
+    zero = xp.zeros_like(x)
+    basis = sh_basis(_NS, _Dual(x, (1.0, 0.0, 0.0)), _Dual(y, (0.0, 1.0, 0.0)),
+                     _Dual(z, (0.0, 0.0, 1.0)), degree)
+    return [tuple(zero + g for g in b.d) for b in basis]

@@ -30,14 +30,14 @@ def _stage_arrays(seed, n=300):
             ("us", "depths", "areas", "valid", "cinv2ds", "alphas")}
 
 
-def _bin_both(a, conics, **budget):
-    jkw = dict(width=W, height=H, **budget)
+def _bin_both(a, conics, gsid_counts=False, **budget):
+    jkw = dict(width=W, height=H, gsid_counts=gsid_counts, **budget)
     if conics:
         jkw.update(cinv2ds=jnp.asarray(a["cinv2ds"]), alphas=jnp.asarray(a["alphas"]))
     want = jax_binning.bin_gaussians(
         jnp.asarray(a["us"]), jnp.asarray(a["depths"]), jnp.asarray(a["areas"]),
         jnp.asarray(a["valid"]), **jkw)
-    tkw = dict(width=W, height=H, **budget)
+    tkw = dict(width=W, height=H, gsid_counts=gsid_counts, **budget)
     if conics:
         tkw.update(cinv2ds=torch.from_numpy(a["cinv2ds"]), alphas=torch.from_numpy(a["alphas"]))
     got = binning.bin_gaussians(
@@ -115,3 +115,21 @@ def test_dense_tile_lists_matches_jax():
     np.testing.assert_array_equal(
         binning.dense_tile_lists(got, max_per_tile=kmax).numpy(),
         np.asarray(jax_binning.dense_tile_lists(want, max_per_tile=kmax)))
+
+
+@pytest.mark.parametrize("seed,budget", [
+    (0, dict(max_patches=4096)),
+    (2, dict(max_patches=256, max_rows=4096)),   # patch budget overflows
+    (3, dict(max_patches=4096, max_rows=128)),   # row budget overflows
+])
+def test_gsid_counts_match_jax(seed, budget):
+    a = _stage_arrays(seed)
+    got, want = _bin_both(a, True, gsid_counts=True, **budget)
+    _assert_equal(got, want)
+    counts = got["gsid_counts"].numpy()
+    assert got["gsid_counts"].dtype == torch.int32
+    np.testing.assert_array_equal(counts, np.asarray(want["gsid_counts"]))
+    # they count the kept patches of each gaussian
+    gsid = got["patch_gsid"].numpy()
+    np.testing.assert_array_equal(counts, np.bincount(gsid[gsid >= 0], minlength=len(counts)))
+    assert "gsid_counts" not in _bin_both(a, True, **budget)[0]

@@ -1,6 +1,7 @@
-"""PyTorch port on the card: each CUDA kernel against its plain version, and
-the kernel render path against the all-plain path. Every test here needs a
-CUDA device and nvcc, and skips without one.
+"""PyTorch port on the card: each CUDA kernel against its plain version, the
+kernel render path against the all-plain path, and the kernel training step
+against the all-plain step. Every test here needs a CUDA device and nvcc, and
+skips without one.
 
 The file imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -12,11 +13,15 @@ import pytest
 import torch
 
 from easygaussiansplatting_tpu_torch.data import example_camera
+from easygaussiansplatting_tpu_torch.data.synthetic import make_synthetic_scene
 from easygaussiansplatting_tpu_torch.models import Camera
 from easygaussiansplatting_tpu_torch.models.convert import gaussians_from_numpy
+from easygaussiansplatting_tpu_torch.models.gaussians import pool_from_arrays
 from easygaussiansplatting_tpu_torch.ops.binning import bin_gaussians
 from easygaussiansplatting_tpu_torch.ops.kernels import preprocess, rasterize, scan
 from easygaussiansplatting_tpu_torch.ops.rasterize import raster_from_aux, render
+from easygaussiansplatting_tpu_torch.train.config import TrainConfig
+from easygaussiansplatting_tpu_torch.train.loop import loss_and_grads
 
 pytestmark = pytest.mark.cuda
 
@@ -105,3 +110,102 @@ def test_raster_from_aux_needs_the_table_on_the_kernel_path(cuda):
     attrs = [pre[k] for k in ("us", "cinv2ds", "alphas", "colors", "depths", "areas", "valid")]
     with pytest.raises(ValueError, match="table"):
         raster_from_aux(*attrs, width=CAM.width, height=CAM.height, max_patches=1024)
+
+
+def _close_per_group(got, want, name):
+    """atol 5e-4 * max(1, max|want|): float32 sums in another order."""
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, atol=5e-4 * scale, rtol=0, msg=name)
+
+
+def _close_to_scale(got, want, name, rel):
+    """atol rel * max|want| (at least 1e-12): for the gradients of a loss that
+    is a mean over pixels, which lie far below 1, where a limit relative to 1
+    could not fail."""
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, atol=max(rel * scale, 1e-12), rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4, 5])
+def test_preprocess_bwd_kernel_matches_plain(cuda, deg):
+    t = gaussians_from_numpy(_scene(4, 3000, deg), cuda)
+    args = [t[k] for k in KEYS]
+    g = torch.Generator().manual_seed(deg)
+    dtable = torch.randn((3000, preprocess.TABLE_COLS), generator=g).to(cuda)
+    got = preprocess.preprocess_bwd(*args, dtable, CAM, sh_degree=deg)
+    want = preprocess.preprocess_bwd_plain(*args, dtable, CAM, sh_degree=deg)
+    for a, b, name in zip(got, want, KEYS):
+        assert bool(torch.isfinite(a).all()), name
+        _close_per_group(a, b, name)
+
+
+@pytest.mark.parametrize("m", [1, 2047, 2048, 2049, 6000, 557056])
+def test_segmented_scan_kernel_matches_plain(cuda, m):
+    g = torch.Generator().manual_seed(m)
+    vals = torch.randn((9, m), generator=g)
+    flags = (torch.rand(m, generator=g) < 0.05).to(torch.int32)
+    if m == 6000:  # starts at and next to the block edges; one segment spans two blocks
+        flags.zero_()
+        flags[[0, 2047, 2048, 4100]] = 1
+    got = scan.segmented_cumsum(vals.to(cuda), flags.to(cuda)).cpu()
+    want = scan.segmented_cumsum_plain(vals, flags)
+    # float32 running sums in another order: 1e-5 of the running |sum|
+    mag = scan.segmented_cumsum_plain(vals.abs(), flags)
+    assert bool(((got - want).abs() <= 1e-5 * mag + 1e-6).all())
+
+
+@pytest.mark.parametrize("stack", [False, True])
+def test_rasterize_bwd_kernel_matches_plain(cuda, stack):
+    t = gaussians_from_numpy(_scene(5, 700, 0, stack=stack), cuda)
+    pre = preprocess.fused_preprocess(*(t[k] for k in KEYS), CAM, sh_degree=0)
+    b = bin_gaussians(pre["us"], pre["depths"], pre["areas"], pre["valid"], width=CAM.width,
+                      height=CAM.height, max_patches=8192, cinv2ds=pre["cinv2ds"],
+                      alphas=pre["alphas"])
+    args = (pre["table"], b["patch_gsid"], b["tile_start"], b["tile_cnt"])
+    _, tau, cont = rasterize.rasterize_fwd(*args, width=CAM.width, height=CAM.height)
+    g_img = torch.randn((3, CAM.height, CAM.width), generator=torch.Generator().manual_seed(1))
+    kw = dict(width=CAM.width, height=CAM.height)
+    got = rasterize.rasterize_bwd(*args, g_img.to(cuda), tau, cont, **kw)
+    want = rasterize.rasterize_bwd_plain(*args, g_img.to(cuda), tau, cont, **kw)
+    for j in range(9):
+        _close_per_group(got[j], want[j], f"row {j}")
+
+
+def _pool_and_gt(cuda):
+    s = make_synthetic_scene(seed=6, n_gaussians=400, n_cams=1, width=64, height=48)
+    img, _ = render(s["pws"], s["shs"], s["alphas"], s["scales"], s["rots"], s["cameras"][0],
+                    sh_degree=0, max_patches=16384, need_grads=False)
+    rng = np.random.default_rng(6)
+    pool = pool_from_arrays(s["pws"], s["rots"], s["scales"],
+                            np.clip(s["alphas"] + rng.normal(size=400) * 0.1, 0.05, 0.95),
+                            s["shs"] + rng.normal(size=s["shs"].shape) * 0.2, capacity=512,
+                            device=cuda)
+    return pool, s["cameras"][0], img
+
+
+def test_kernel_step_matches_plain_step(cuda):
+    pool, cam, gt = _pool_and_gt(cuda)
+    counts = [w.launches for w in (preprocess.preprocess_bwd, rasterize.rasterize_bwd,
+                                   scan.segmented_cumsum)]
+    loss, grads, aux = loss_and_grads(pool, cam, gt, TrainConfig(max_patches=16384))
+    after = [w.launches for w in (preprocess.preprocess_bwd, rasterize.rasterize_bwd,
+                                  scan.segmented_cumsum)]
+    assert [a - b for a, b in zip(after, counts)] == [1, 1, 1]
+    loss_p, grads_p, aux_p = loss_and_grads(pool, cam, gt,
+                                            TrainConfig(max_patches=16384, backend="tiled"))
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    # the two forwards round tau differently (sequential products against
+    # chunked cumulative ones) and each backward replays from its own
+    for k in grads:
+        _close_to_scale(grads[k], grads_p[k], k, 1e-2)
+    for k in ("total", "n_dropped", "rows_dropped", "gsid_counts"):
+        assert torch.equal(aux["binning"][k], aux_p["binning"][k]), k
+
+
+def test_kernel_gradients_are_bit_equal_across_runs(cuda):
+    pool, cam, gt = _pool_and_gt(cuda)
+    cfg = TrainConfig(max_patches=16384)
+    _, g1, _ = loss_and_grads(pool, cam, gt, cfg)
+    _, g2, _ = loss_and_grads(pool, cam, gt, cfg)
+    for k in g1:
+        assert torch.equal(g1[k], g2[k]), k

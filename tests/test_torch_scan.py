@@ -1,6 +1,7 @@
-"""PyTorch port: K3 multi-row cumsum (plain version on the CPU) against the
-JAX Pallas scan kernel run through the interpreter, and the wrapper's
-input checks."""
+"""PyTorch port: K3 multi-row cumsum and K6 segmented cumsum (plain versions
+on the CPU) against the JAX Pallas scan kernels run through the interpreter,
+the gradient sort-reduce against the JAX one, and the wrappers' input
+checks."""
 
 import jax
 import jax.numpy as jnp
@@ -11,7 +12,9 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from easygaussiansplatting_tpu.ops.pallas import scan as jax_scan
+from easygaussiansplatting_tpu.ops.pallas.rasterize import _sort_reduce_grads
 from easygaussiansplatting_tpu_torch.ops.kernels import scan
+from easygaussiansplatting_tpu_torch.ops.kernels.rasterize import sort_reduce_grads
 
 torch.set_num_threads(2)
 
@@ -86,3 +89,82 @@ def test_wrapper_rejects(bad):
     with pytest.raises(err):
         scan.multi_cumsum(x)
 
+
+
+def _interpreted_seg_scan_kernel(vals, flags, lanes=128):
+    """``_seg_scan_kernel`` itself, as tests/test_scan.py runs it."""
+    r, m = vals.shape
+    return pl.pallas_call(
+        jax_scan._seg_scan_kernel,
+        grid=(m // lanes,),
+        in_specs=[
+            pl.BlockSpec((r, lanes), lambda c: (0, c), memory_space=pltpu.VMEM),
+            pl.BlockSpec((1, lanes), lambda c: (0, c), memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((r, lanes), lambda c: (0, c), memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((r, m), jnp.float32),
+        scratch_shapes=[pltpu.VMEM((r, 1), jnp.float32)],
+        interpret=True,
+    )(vals, flags[None, :])
+
+
+@pytest.mark.parametrize("starts", [[0, 300], [0], [0, 127, 128, 400], "random"])
+def test_segmented_matches_interpreted_kernel(starts):
+    """Segments that span the interpreter's 128-lane blocks, starts at and
+    next to a block edge, and random flags. atol 1e-5: float32 sums in
+    another order (the plain version sums in float64)."""
+    rng = np.random.default_rng(3)
+    r, m = 9, 512
+    vals = rng.normal(size=(r, m)).astype(np.float32)
+    if starts == "random":
+        flags = (rng.random(m) < 0.1).astype(np.int32)
+        flags[0] = 1
+    else:
+        flags = np.zeros(m, np.int32)
+        flags[starts] = 1
+    want = np.asarray(_interpreted_seg_scan_kernel(jnp.asarray(vals), jnp.asarray(flags)))
+    got = scan.segmented_cumsum(torch.from_numpy(vals), torch.from_numpy(flags))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_segmented_no_cross_segment_cancellation():
+    """A huge segment before a tiny one: the tiny one's sums stay exact."""
+    vals = np.array([[1e7, 3e7, -2e7, 1.0, 2.0, 3.0]], np.float32)
+    flags = np.array([1, 0, 0, 1, 0, 0], np.int32)
+    got = scan.segmented_cumsum(torch.from_numpy(vals), torch.from_numpy(flags))
+    np.testing.assert_array_equal(got.numpy()[0, 3:], [1.0, 3.0, 6.0])
+
+
+@pytest.mark.parametrize("bad", ["int32", "dim", "flags_len", "flags_dtype"])
+def test_segmented_wrapper_rejects(bad):
+    vals = torch.zeros((9, 16))
+    flags = torch.zeros(16, dtype=torch.int32)
+    if bad == "int32":
+        vals = vals.int()
+    elif bad == "dim":
+        vals = torch.zeros(16)
+    elif bad == "flags_len":
+        flags = torch.zeros(15, dtype=torch.int32)
+    else:
+        flags = flags.bool()
+    with pytest.raises(ValueError):
+        scan.segmented_cumsum(vals, flags)
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_sort_reduce_matches_jax(rng, use_kernels):
+    """The port's sort + segmented sum + segment-end gather against the JAX
+    ``_sort_reduce_grads`` on the same per-patch rows, dead patches (gsid -1)
+    included (tests/test_pallas.py drives the JAX one the same way)."""
+    m, n = 3000, 300
+    gsid = rng.integers(-1, n, size=m).astype(np.int32)
+    live = gsid >= 0
+    rows = np.where(live[None, :], rng.normal(size=(9, m)), 0.0).astype(np.float32)
+    counts = np.bincount(gsid[live], minlength=n).astype(np.int32)
+    want = np.asarray(_sort_reduce_grads(jnp.asarray(rows), jnp.asarray(np.maximum(gsid, 0)),
+                                         jnp.asarray(live), jnp.asarray(counts), n))
+    got = sort_reduce_grads(torch.from_numpy(rows), torch.from_numpy(gsid),
+                            torch.from_numpy(counts), use_kernels)
+    assert got.shape == (n, 9)
+    np.testing.assert_allclose(got.numpy().T, want, atol=2e-5, rtol=0)
+    assert np.all(got.numpy()[counts == 0] == 0.0)
