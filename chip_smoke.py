@@ -13,10 +13,21 @@ gaussians, SH degree 3, 979x546, max_patches 557,056, max_rows 229,376):
   started from the scene with perturbed opacities and colours, and 23 steps
   of ``make_train_step`` (3 warm, 20 timed) cycling the views; then one step
   held against the all-plain step, two kernel steps held bit-equal, and K2,
-  K5 and K6 each held against its plain version on the step's inputs.
+  K5 and K6 each held against its plain version on the step's inputs;
+* the sort routes, from the trained state: one kernel step on view 0 under
+  each of the JAX package's opt-in sort flags (K8 in binning and the
+  reduce; K7 in the gsid_counts inversion and the reduce; K7 with the
+  10-array payload; K7 on two key words at a 2^21 patch budget), held
+  against the default route, then K7 and K8 held against their plain
+  versions on the inputs their wrappers received there;
+* the epoch driver: ``train`` for 4 epochs of the 4 views at capacity
+  131,072 with densify at epochs 2 and 4 and the adaptive budget, a
+  checkpoint at epoch 2, and the resume from it held bit-equal to the resume
+  from the state kept in memory;
+* the render, train and bench CLIs once each.
 
-Each path's kernel launch counts are set to 0 just before it runs and read
-just after. Any failed check exits non-zero.
+Each path's (or route's) kernel launch counts are set to 0 just before it
+runs and read just after. Any failed check exits non-zero.
 
 Output: per-phase lines, then the card's name and power limit as nvidia-smi
 gives them, then on its own line a JSON object {"kernels": [...]} (per
@@ -28,8 +39,11 @@ Needs torch with CUDA and nvcc (CUDA_HOME, /usr/local/cuda or PATH); exits
 non-zero without a CUDA device. Imports nothing of JAX.
 """
 
+import contextlib
+import copy
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -44,12 +58,25 @@ from easygaussiansplatting_tpu_torch.models.gaussians import pool_from_arrays
 from easygaussiansplatting_tpu_torch.ops import stages
 from easygaussiansplatting_tpu_torch.ops.binning import TILE, bin_gaussians, num_tiles
 from easygaussiansplatting_tpu_torch.ops.blend import ALPHA_CLAMP, ALPHA_SKIP, chunk_alpha
-from easygaussiansplatting_tpu_torch.ops.kernels import _build, preprocess, rasterize, scan
+from easygaussiansplatting_tpu_torch.ops.kernels import (
+    _build,
+    preprocess,
+    radix,
+    rasterize,
+    scan,
+    sort,
+)
 from easygaussiansplatting_tpu_torch.ops.rasterize import render
 from easygaussiansplatting_tpu_torch.ops.rasterize_tiled import K_CHUNK
+from easygaussiansplatting_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from easygaussiansplatting_tpu_torch.train.config import TrainConfig
 from easygaussiansplatting_tpu_torch.train.density import density_stats_init
-from easygaussiansplatting_tpu_torch.train.loop import loss_and_grads, make_train_step
+from easygaussiansplatting_tpu_torch.train.loop import (
+    PatchBudget,
+    loss_and_grads,
+    make_train_step,
+    train,
+)
 from easygaussiansplatting_tpu_torch.train.optimizer import adam_init
 
 ROOT = Path(__file__).resolve().parent
@@ -63,6 +90,9 @@ MAX_ROWS = 229376
 N_VIEWS = 4
 SEED = 0
 TRAIN_WARM, TRAIN_STEPS = 3, 20
+# the two-word (tile, slot) route: mp_bits 21, so (2,170 + 1) << 21 > 2^32
+LEX_MAX_PATCHES = 2_097_152
+DRIVER_EPOCHS, DRIVER_CAPACITY = 4, 131072
 
 # Published H100 SXM peaks (NVIDIA data sheet): device memory and FP32
 # outside the tensor cores. INT32 adds are counted at half the FP32 rate
@@ -107,6 +137,10 @@ REL_FLOOR = 1e-12
 # K6 against its float64 plain version: float32 running sums, within 1e-5
 # of the segment's running sum of |x|
 K6_RTOL = 1e-5
+# A K7 route against the default route: the gradient sums within a gaussian
+# may run in another order, each group within ROUTE_REL * max|g|. (K7 breaks
+# ties by position, so it is stable and the sums run in the same order.)
+ROUTE_REL = 1e-4
 
 
 # device kernel names of each port kernel (csrc/)
@@ -124,7 +158,20 @@ WRAPPERS = {"K1 preprocess_fwd": preprocess.preprocess_fwd,
             "K3 multi_cumsum": scan.multi_cumsum,
             "K4 rasterize_fwd": rasterize.rasterize_fwd,
             "K5 rasterize_bwd": rasterize.rasterize_bwd,
-            "K6 segmented_cumsum": scan.segmented_cumsum}
+            "K6 segmented_cumsum": scan.segmented_cumsum,
+            "K7 sort_pairs": sort.sort_pairs,
+            "K8 counting_sort": radix.counting_sort}
+STEP_KERNELS = tuple(k for k in WRAPPERS if k[:2] in ("K1", "K2", "K3", "K4", "K5", "K6"))
+ROUTE_KERNELS = ("K7 sort_pairs", "K8 counting_sort")
+# the sort routes: (label, flags, patch budget (None: the bench's), kernel)
+ROUTES = (("K8 in binning and the reduce", {"EGS_RADIX_SORT": "1", "EGS_RADIX_REDUCE": "1"},
+           None, "K8 counting_sort"),
+          ("K7 in the gsid_counts inversion and the reduce", {"EGS_XLA_GRAD_SORT": "0"}, None,
+           "K7 sort_pairs"),
+          ("K7 with the 10-array payload", {"EGS_GRAD_PERM": "0"}, None, "K7 sort_pairs"),
+          ("K7 on two key words", {"EGS_LEX_SORT": "1"}, LEX_MAX_PATCHES, "K7 sort_pairs"))
+BIN_KEYS = ("patch_gsid", "patch_tile", "tile_start", "tile_cnt", "total", "n_dropped",
+            "total_rows", "rows_dropped", "gsid_counts")
 
 
 def require(cond, msg):
@@ -442,7 +489,8 @@ def render_wall(render_once, samples=50, warmup=2):
 def phase_profile(label, run_once, wall_ms, groups, reps=5, again=True):
     """Where the device time of one run goes (a profiled window of ``reps``
     runs), its idle share against the unprofiled median wall time, and, with
-    ``again``, a second set of wall-time samples taken after the window."""
+    ``again``, a second set of wall-time samples taken after the window.
+    Returns (device ms per run or None, lines)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
@@ -453,7 +501,7 @@ def phase_profile(label, run_once, wall_ms, groups, reps=5, again=True):
         name = short_name(e.name)
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
     if not by_name:  # a profiler that traces no device leaves the run unbroken-down
-        return [f"{label} profile: torch.profiler recorded no device kernels"]
+        return None, [f"{label} profile: torch.profiler recorded no device kernels"]
     busy = sum(by_name.values())
     ours = {k: sum(v for n, v in by_name.items() if n in names) for k, names in groups}
     lines = [f"{label} device time {busy:.4f} ms per {label} ({len(by_name)} kernel names); "
@@ -464,12 +512,12 @@ def phase_profile(label, run_once, wall_ms, groups, reps=5, again=True):
     lines.append(f"{label} top device kernels: " + "; ".join(f"{n} {v:.4f} ms" for n, v in top))
     if again:
         lines.append(f"{label} wall time again: {render_wall(run_once)[1]}")
-    return lines
+    return busy, lines
 
 
-def train_setup(device):
+def train_setup(device, capacity=N_GAUSSIANS):
     """Ground truth of the N_VIEWS views rendered by the port, and a pool of
-    capacity N_GAUSSIANS started from the scene with opacities and colours
+    ``capacity`` started from the scene with opacities and colours
     perturbed by a seeded generator (scales left alone, so the patch count
     stays inside the budget)."""
     scene = make_synthetic_scene(seed=SEED, n_gaussians=N_GAUSSIANS, n_cams=N_VIEWS,
@@ -485,7 +533,7 @@ def train_setup(device):
     shs_p = shs.copy()
     shs_p[:, :3] += 0.2 * torch.randn((N_GAUSSIANS, 3), generator=gen).numpy()
     pool = pool_from_arrays(scene["pws"], scene["rots"], scene["scales"], alphas, shs_p,
-                            capacity=N_GAUSSIANS, device=device)
+                            capacity=capacity, device=device)
     cfg = TrainConfig(max_patches=MAX_PATCHES, max_rows=MAX_ROWS, sh_degree=3)
     return pool, scene["cameras"], gts, scene["scene_size"], cfg
 
@@ -515,7 +563,9 @@ def phase_train(device):
     per_step = {k: v / n_steps for k, v in launches.items()}
     lines = [f"training path launches over {n_steps} steps: {launches} ({per_step} per step)",
              f"training losses: " + " ".join(f"{v:.5f}" for v in losses)]
-    require(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    require(all(launches[k] > 0 for k in STEP_KERNELS), f"a kernel was not launched: {launches}")
+    require(all(launches[k] == 0 for k in ROUTE_KERNELS),
+            f"a sort-route kernel ran on the default route: {launches}")
     require(all(d == 0 for d in drops), f"a step dropped patches or rows: {drops}")
     first, last = float(np.mean(losses[:N_VIEWS])), float(np.mean(losses[-N_VIEWS:]))
     require(last < first, f"the loss did not fall: first {first:.5f}, last {last:.5f}")
@@ -533,7 +583,7 @@ def phase_train(device):
         counter[0] += 1
         step(pool, state, stats, cams[i % N_VIEWS], gts[i % N_VIEWS])
 
-    lines += phase_profile("step", step_once, float(med), STEP_GROUPS, again=False)
+    lines += phase_profile("step", step_once, float(med), STEP_GROUPS, again=False)[1]
     return launches, lines, (pool, cams, gts, cfg)
 
 
@@ -581,7 +631,7 @@ class _Keeper:
     def __call__(self, *args, **kwargs):
         out = self.fn(*args, **kwargs)
         args = tuple(a.detach() if torch.is_tensor(a) else a for a in args)
-        self.seen[self.fn.__name__] = (args, kwargs, out)
+        self.seen.setdefault(self.fn.__name__, []).append((args, kwargs, out))
         return out
 
     @property
@@ -593,26 +643,32 @@ class _Keeper:
         self.fn.launches = value
 
 
-def step_inputs(pool, cam, gt, cfg):
-    """What K2, K5 and K6 receive in one kernel step from ``cam``: for one
-    ``loss_and_grads`` call each wrapper's module name is bound to a
-    _Keeper, so the kernels are later held to their plain versions on
-    exactly what the step ran. Returns {wrapper name: (args, kwargs,
-    result)}."""
-    sites = ((preprocess, "preprocess_bwd"), (rasterize, "rasterize_bwd"),
-             (scan, "segmented_cumsum"))
+def kept_calls(sites, run):
+    """Runs ``run()`` with each wrapper of ``sites`` ((module, name) pairs)
+    bound to a _Keeper under its module name, so the kernels can later be
+    held to their plain versions on exactly what the run gave them. Returns
+    (run's result, {wrapper name: [(args, kwargs, result), ...]})."""
     seen = {}
     originals = [getattr(mod, name) for mod, name in sites]
     for (mod, name), fn in zip(sites, originals):
         setattr(mod, name, _Keeper(fn, seen))
     try:
-        loss_and_grads(pool, cam, gt, cfg)
+        out = run()
     finally:
         for (mod, name), fn in zip(sites, originals):
             setattr(mod, name, fn)
+    return out, seen
+
+
+def step_inputs(pool, cam, gt, cfg):
+    """What K2, K5 and K6 receive in one kernel step from ``cam``. Returns
+    {wrapper name: (args, kwargs, result)}."""
+    sites = ((preprocess, "preprocess_bwd"), (rasterize, "rasterize_bwd"),
+             (scan, "segmented_cumsum"))
+    _, seen = kept_calls(sites, lambda: loss_and_grads(pool, cam, gt, cfg))
     require(sorted(seen) == sorted(name for _, name in sites),
             f"the step called only {sorted(seen)} of the backward kernels")
-    return seen
+    return {k: v[-1] for k, v in seen.items()}
 
 
 def group_check(label, names, got, want, rel):
@@ -771,6 +827,279 @@ def phase_k6(seen, flush, clock_mhz, n_sm):
             **bound(m * (9 * 4 * 2 + 4), svals.numel(), 0, clock_mhz, n_sm)}, lines
 
 
+@contextlib.contextmanager
+def env_flags(flags):
+    """Set the EGS_* flags in os.environ for the block; restore them after."""
+    saved = {k: os.environ.get(k) for k in flags}
+    os.environ.update(flags)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def reset_launches():
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def phase_routes(pool, cam, gt, cfg):
+    """One kernel step on ``cam`` under each sort route, from one state,
+    held against the default route at the same budget: binning and
+    gsid_counts equal; gradients bit-equal under K8 (a stable sort: the sums
+    run in the same order), each group within ROUTE_REL * max|g| under K7,
+    with planted faults refused; the route's kernel launched, and neither
+    sort kernel on the default route. Returns ({route label: launches},
+    {wrapper name: [(label, args, kwargs, result)]}, lines)."""
+    sites = ((sort, "sort_pairs"), (radix, "counting_sort"))
+    default, route_launches, calls, lines = {}, {}, {}, []
+    for label, flags, budget, kernel in ROUTES:
+        rcfg = cfg if budget is None else dataclasses.replace(cfg, max_patches=budget)
+        if rcfg.max_patches not in default:
+            reset_launches()
+            default[rcfg.max_patches] = loss_and_grads(pool, cam, gt, rcfg)
+            torch.cuda.synchronize()
+            ran = {k: WRAPPERS[k].launches for k in ROUTE_KERNELS}
+            lines.append(f"default route at max_patches {rcfg.max_patches}: sort-route kernel "
+                         f"launches {ran}")
+            require(all(v == 0 for v in ran.values()), "a sort-route kernel ran by default")
+        loss_d, grads_d, aux_d = default[rcfg.max_patches]
+        reset_launches()
+        with env_flags(flags):
+            (loss, grads, aux), seen = kept_calls(
+                sites, lambda rcfg=rcfg: loss_and_grads(pool, cam, gt, rcfg))
+        torch.cuda.synchronize()
+        launches = {k: WRAPPERS[k].launches for k in ROUTE_KERNELS}
+        route_launches[label] = launches
+        for name, kept in seen.items():
+            calls.setdefault(name, []).extend((label, *c) for c in kept)
+        bn, bn_d = aux["binning"], aux_d["binning"]
+        same_bins = all(torch.equal(bn[k], bn_d[k]) for k in BIN_KEYS)
+        bit_equal = bool(torch.equal(loss, loss_d)) and all(
+            torch.equal(grads[k], grads_d[k]) for k in grads)
+        lines.append(f"route {label} {flags} (max_patches {rcfg.max_patches}): launches "
+                     f"{launches}; binning and gsid_counts equal to the default route: "
+                     f"{same_bins}; loss and gradients bit-equal: {bit_equal}")
+        require(launches[kernel] > 0, f"route {label}: {kernel} was not launched")
+        require(all(v == 0 for k, v in launches.items() if k != kernel),
+                f"route {label}: another sort kernel ran: {launches}")
+        require(same_bins, f"route {label}: binning differs from the default route")
+        if kernel.startswith("K8"):
+            require(bit_equal, f"route {label}: gradients differ from the default route")
+        else:
+            _, check = group_check(f"  route {label} gradients", list(grads),
+                                   [grads[k] for k in grads], [grads_d[k] for k in grads],
+                                   ROUTE_REL)
+            lines += check
+    return route_launches, calls, lines
+
+
+def _words(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def sorted_pairs(cols):
+    """The (key words, payload) rows sorted lexicographically, as columns
+    (floats by their bits): equal lists mean equal multisets of rows."""
+    words = [_words(c) for c in cols]
+    order = torch.arange(words[0].numel(), device=words[0].device)
+    for w in reversed(words):
+        order = order[torch.sort(w[order], stable=True).indices]
+    return [w[order] for w in words]
+
+
+def library_sort(keys, vals, n_keys):
+    """One stable torch.sort on the key (two words as one int64) and a
+    gather of every array: the yardstick of K7 and K8."""
+    comp = keys if n_keys == 1 else (keys.long() << 32) + (vals[0].long() + 2**31)
+    perm = torch.sort(comp, stable=True).indices
+    return [a[perm] for a in (keys, *vals)]
+
+
+def sum_timings(parts):
+    """The times and bounds of several calls added up (bound_by: the
+    first's; every part here is bound by bytes)."""
+    return {k: v if isinstance(v, str) else sum(p[k] for p in parts)
+            for k, v in parts[0].items()}
+
+
+def phase_k7(calls, flush, clock_mhz, n_sm):
+    """K7 against its plain version on every call its routes made: keys
+    equal, (key, payload) rows equal as multisets. The entry's times are
+    those of the calls of one step on the route K7 in the gsid_counts
+    inversion and the reduce; the other routes' calls are timed in lines.
+    Its max_abs_err is 0: every call's sorted pairs must equal the plain
+    version's exactly."""
+    lines, entry_parts = [], []
+    for label, args, kw, out in calls:
+        keys, vals = args[0], args[1:]
+        n_keys = kw.get("n_keys", 1)
+        want = sort.sort_pairs_plain(*args, **kw)
+        again = sort.sort_pairs(*args, **kw)
+        same_keys = all(torch.equal(out[j], want[j]) for j in range(n_keys))
+        same_pairs = all(torch.equal(a, b) for a, b in
+                         zip(sorted_pairs(out), sorted_pairs(want)))
+        exact = all(torch.equal(_words(a), _words(b)) for a, b in zip(out, want))
+        repeat = all(torch.equal(_words(a), _words(b)) for a, b in zip(out, again))
+        require(same_keys and same_pairs and repeat,
+                f"K7 on {label} differs from its plain version")
+        m = keys.numel()
+        t = timings(lambda: sort.sort_pairs(*args, **kw),
+                    lambda: sort.sort_pairs_plain(*args, **kw), clock_mhz, flush,
+                    plain_iters=20, library=lambda: library_sort(keys, vals, n_keys))
+        t.update(bound(m * 4 * 2 * (1 + len(vals)), 0, 0, clock_mhz, n_sm))
+        lines.append(f"K7 on {label}, {m} keys x {n_keys} word(s) + {len(vals) + 1 - n_keys} "
+                     f"payload(s): keys equal, pairs equal as multisets, equal to the stable "
+                     f"plain version: {exact}; {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+                     f"library {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ms)")
+        if label == ROUTES[1][0]:
+            entry_parts.append(t)
+    require(len(entry_parts) == 2, "the inversion-and-reduce route made two K7 calls")
+    return {"name": "K7 sort_pairs", "route": "cuda",
+            "source": "easygaussiansplatting_tpu_torch/csrc/sort.cu",
+            "replaces": "easygaussiansplatting_tpu/ops/pallas/sort.py:90",
+            "max_abs_err": 0.0, **sum_timings(entry_parts)}, lines
+
+
+def phase_k8(calls, flush, clock_mhz, n_sm):
+    """K8 against its plain version on binning's and the reduce's calls:
+    equal bit for bit. The entry's times are the two calls' of one step."""
+    lines, parts = [], []
+    for label, args, kw, out in calls:
+        want = radix.counting_sort_plain(*args, **kw)
+        again = radix.counting_sort(*args, **kw)
+        exact = all(torch.equal(a, b) for a, b in zip(out, want))
+        repeat = all(torch.equal(a, b) for a, b in zip(again, want))
+        require(exact and repeat, f"K8 on {label} differs from its plain version")
+        m = args[0].numel()
+        t = timings(lambda: radix.counting_sort(*args, **kw),
+                    lambda: radix.counting_sort_plain(*args, **kw), clock_mhz, flush,
+                    plain_iters=20, library=lambda: library_sort(args[0], args[1:], 1))
+        t.update(bound(m * 4 * 2 * len(args), 0, 0, clock_mhz, n_sm))
+        lines.append(f"K8 on {label}, {m} keys below {kw['key_bound']} + {len(args) - 1} "
+                     f"payload(s): equal to the plain version; {t['ms']:.4f} ms (plain "
+                     f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
+                     f"{t['bound_ms']:.4f} ms)")
+        parts.append(t)
+    require(len(parts) == 2, "the K8 route made two K8 calls")
+    return {"name": "K8 counting_sort", "route": "cuda",
+            "source": "easygaussiansplatting_tpu_torch/csrc/radix.cu",
+            "replaces": "easygaussiansplatting_tpu/ops/pallas/radix.py:100",
+            "max_abs_err": 0.0, **sum_timings(parts)}, lines
+
+
+def _generator_copy(gen):
+    out = torch.Generator()
+    out.set_state(gen.get_state())
+    return out
+
+
+def phase_driver(device):
+    """The epoch driver: ``train`` for DRIVER_EPOCHS epochs of the N_VIEWS
+    views at capacity DRIVER_CAPACITY, densify every 2 epochs, the adaptive
+    budget from the bench's patch budget (rung 589,824); a checkpoint and an
+    in-memory copy of the state at epoch 2, and from each a resumed
+    ``train(start_epoch=2)``, which must agree bit for bit. Yields its
+    lines as it goes, so a failed check follows what led to it."""
+    pool, cams, gts, scene_size, cfg = train_setup(device, capacity=DRIVER_CAPACITY)
+    cfg = dataclasses.replace(cfg, epochs=DRIVER_EPOCHS, densify_every_epochs=2)
+    ck = ROOT / "build" / "smoke_driver.npz"
+    ck.parent.mkdir(parents=True, exist_ok=True)
+    rung = PatchBudget(cfg).value
+    # each epoch's starting state and budget, for its device busy time below
+    starts = [(copy.deepcopy((pool, adam_init(pool.params()),
+                              density_stats_init(pool.capacity, device))), rung)]
+    kept = {}
+
+    def at_epoch(e, pool, adam, stats, gen, history):
+        if e < DRIVER_EPOCHS:
+            starts.append((copy.deepcopy((pool, adam, stats)), history["budget"][-1]))
+        if e == 2:
+            save_checkpoint(ck, pool, adam, stats, epoch=e, generator=gen)
+            kept["state"], kept["gen"] = copy.deepcopy((pool, adam, stats)), _generator_copy(gen)
+
+    logs = []
+    reset_launches()
+    t0 = time.perf_counter()
+    pool, hist = train(pool, cams, gts, cfg, scene_size, seed=SEED, log_fn=logs.append,
+                       eval_every=100, epoch_cb=at_epoch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    yield f"driver: {DRIVER_EPOCHS} epochs x {N_VIEWS} views in {wall:.3f} s; launches {launches}"
+    yield from (f"  log: {ln}" for ln in logs)
+    require(all(launches[k] > 0 for k in STEP_KERNELS), f"a kernel was not launched: {launches}")
+    for e in range(DRIVER_EPOCHS):
+        yield (f"  epoch {e + 1}: wall {hist['epoch_time'][e] * 1e3:.3f} ms (steps "
+               f"{hist['t_steps_wall'][e] * 1e3:.3f} ms), t_step_device "
+               f"{hist['t_step_device'][e] * 1e3:.3f} ms, densify "
+               f"{hist['t_densify'][e] * 1e3:.3f} ms, budget {hist['budget'][e]}, n_alive "
+               f"{hist['n_alive'][e]}, overflow_steps {hist['overflow_steps'][e]}, loss "
+               f"{hist['loss'][e]:.6f}")
+    for e in range(DRIVER_EPOCHS):
+        before = hist["budget"][e - 1] if e else rung
+        if hist["overflow_steps"][e] > 0:
+            require(hist["budget"][e] != before,
+                    f"epoch {e + 1} dropped patches and the budget did not change")
+    # a densify adds gaussians as bright as their sources (the reference's
+    # clone and split both keep the original), so the loss jumps after one;
+    # between densifies it must fall
+    for e in range(1, DRIVER_EPOCHS):
+        if e % cfg.densify_every_epochs:
+            require(hist["loss"][e] < hist["loss"][e - 1],
+                    f"the loss did not fall from epoch {e} to {e + 1}: "
+                    f"{hist['loss'][e - 1]:.6f} -> {hist['loss'][e]:.6f}")
+    require(hist["n_alive"][1] > N_GAUSSIANS, "the densify at epoch 2 added nothing")
+
+    rpool, radam, rstats, epoch, rgen = load_checkpoint(ck, device=device)
+    require(epoch == 2 and rgen is not None, "the checkpoint is not epoch 2's")
+    mpool, madam, mstats = kept["state"]
+    quiet = dict(seed=SEED, log_fn=lambda *_: None, eval_every=100)
+    _, rh = train(rpool, cams, gts, cfg, scene_size, adam_state=radam, stats=rstats,
+                  start_epoch=2, generator=rgen, **quiet)
+    _, mh = train(mpool, cams, gts, cfg, scene_size, adam_state=madam, stats=mstats,
+                  start_epoch=2, generator=kept["gen"], **quiet)
+    same = (rh["loss"] == mh["loss"] and radam.count == madam.count
+            and all(torch.equal(getattr(rpool, k), getattr(mpool, k))
+                    for k in ("pws", "low_shs", "high_shs", "alphas_raw", "scales_raw",
+                              "rots_raw", "alive"))
+            and all(torch.equal(radam.mu[k], madam.mu[k]) and torch.equal(radam.nu[k], madam.nu[k])
+                    for k in radam.mu)
+            and torch.equal(rstats.grad_accum, mstats.grad_accum)
+            and torch.equal(rstats.cunt, mstats.cunt))
+    yield (f"driver resume: train(start_epoch=2) from the epoch-2 checkpoint and from the "
+           f"state kept in memory: pool, Adam state and stats bit-equal: {same}; losses "
+           f"{[round(v, 6) for v in rh['loss']]}")
+    require(same, "the resumed runs differ")
+
+    # each epoch's idle share: the device's busy time per step, profiled
+    # from the epoch's starting state at its starting budget, against the
+    # epoch's step wall time
+    shares = []
+    for e, ((spool, sadam, sstats), budget) in enumerate(starts):
+        step = make_train_step(cfg, scene_size, DRIVER_EPOCHS * N_VIEWS, max_patches=budget,
+                               device=device)
+        counter = [0]
+
+        def step_once():
+            i = counter[0]
+            counter[0] += 1
+            step(spool, sadam, sstats, cams[i % N_VIEWS], gts[i % N_VIEWS])
+
+        wall_step = hist["t_steps_wall"][e] * 1e3 / N_VIEWS
+        busy, prof = phase_profile(f"driver epoch {e + 1} step", step_once, wall_step,
+                                   STEP_GROUPS, again=False)
+        yield from prof[:1]
+        if busy is not None:
+            shares.append(f"epoch {e + 1} {1 - busy / wall_step:.3f}")
+    yield ("driver idle share per epoch (1 - device busy per step from the epoch's starting "
+           "state / the epoch's step wall per view): " + ", ".join(shares))
+
+
 def phase_cli():
     out = ROOT / "build" / "smoke_cli.png"
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -782,6 +1111,34 @@ def phase_cli():
     require(res.returncode == 0, f"render CLI failed:\n{res.stdout}\n{res.stderr}")
     require(out.exists() and out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n", "CLI wrote no PNG")
     return [f"CLI: {res.stdout.strip().splitlines()[-1]}"]
+
+
+def phase_train_cli():
+    out = ROOT / "build" / "smoke_train"
+    for name in ("final.ply", "checkpoint.npz"):
+        if (out / name).exists():
+            (out / name).unlink()
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "easygaussiansplatting_tpu_torch.train",
+                          "--synthetic", "--epochs", "2", "--out", str(out)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    require(res.returncode == 0, f"train CLI failed:\n{res.stdout}\n{res.stderr}")
+    require((out / "final.ply").exists() and (out / "checkpoint.npz").exists(),
+            "the train CLI wrote no final.ply or checkpoint.npz")
+    return [f"train CLI ({time.perf_counter() - t0:.1f} s): " + line
+            for line in res.stdout.strip().splitlines()[-3:]]
+
+
+def phase_bench_cli():
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "easygaussiansplatting_tpu_torch.bench"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    require(res.returncode == 0, f"bench CLI failed:\n{res.stdout}\n{res.stderr}")
+    lines = res.stdout.strip().splitlines()
+    require(len(lines) == 1, f"bench printed {len(lines)} lines, not one")
+    rec = json.loads(lines[0])
+    require(all(k in rec for k in ("value", "fwd_throughput")), f"bench line lacks keys: {rec}")
+    return [f"bench CLI ({time.perf_counter() - t0:.1f} s): {lines[0]}"]
 
 
 def print_timing(entry):
@@ -827,7 +1184,7 @@ def main():
         print_timing(entry)
         kernels.append(entry)
 
-    for line in phase_profile("render", render_once, wall_ms, RENDER_GROUPS):
+    for line in phase_profile("render", render_once, wall_ms, RENDER_GROUPS)[1]:
         print(line, flush=True)
 
     train_launches, lines, (pool, cams, gts, cfg) = phase_train(device)
@@ -843,10 +1200,26 @@ def main():
             print(line, flush=True)
         print_timing(entry)
         kernels.append(entry)
-    kernels.sort(key=lambda e: e["name"])
 
-    for line in phase_cli():
+    route_launches, calls, lines = phase_routes(pool, cams[0], gts[0], cfg)
+    for line in lines:
         print(line, flush=True)
+    for phase, name, label in ((phase_k7, "sort_pairs", ROUTES[1][0]),
+                               (phase_k8, "counting_sort", ROUTES[0][0])):
+        entry, lines = phase(calls[name], flush, clock_mhz, n_sm)
+        entry["launches"] = route_launches[label][entry["name"]]
+        for line in lines:
+            print(line, flush=True)
+        print_timing(entry)
+        kernels.append(entry)
+    kernels.sort(key=lambda e: e["name"])
+    del pool, cams, gts, seen, calls
+
+    for line in phase_driver(device):
+        print(line, flush=True)
+    for phase in (phase_cli, phase_train_cli, phase_bench_cli):
+        for line in phase():
+            print(line, flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

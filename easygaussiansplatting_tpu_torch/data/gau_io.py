@@ -1,13 +1,15 @@
-"""Gaussian-set loading: official-3DGS .ply and the reference's .npy recarray.
+"""Gaussian-set I/O: official-3DGS .ply and the reference's .npy recarray.
 
-Port of the load side of easygaussiansplatting_tpu/data/gau_io.py (numpy on
-both sides). Conventions: alphas/scales are stored *activated* in .npy
+Port of easygaussiansplatting_tpu/data/gau_io.py, load and save sides
+(numpy on both sides, so files written by either package load in the other). Conventions: alphas/scales are stored *activated* in .npy
 records; .ply stores raw values (logit opacity, log scales) with the official
 field names; quaternions are wxyz; SH coefficients are interleaved
 RGB-per-basis ([K,3] flattened), whereas .ply f_rest is planar [3,K-1].
 """
 
 import numpy as np
+
+from easygaussiansplatting_tpu_torch.models.gaussians import pool_from_arrays
 
 SH_C0 = 0.28209479177387814  # Y_0^0
 
@@ -136,3 +138,71 @@ def load_gs(path):
     if p.endswith(".npy"):
         return np.load(p)
     raise ValueError(f"unsupported gaussian file: {p}")
+
+
+def save_ply(path, gs):
+    """Write a recarray as an official-3DGS binary .ply (inverse activations)."""
+    gs = np.asarray(gs)
+    n = len(gs)
+    sh = np.asarray(gs["sh"], np.float32).reshape(n, -1)
+    n_rest = sh.shape[1] - 3
+    alphas = np.clip(np.asarray(gs["alpha"], np.float64), 1e-6, 1 - 1e-6)
+    opacity = np.log(alphas / (1 - alphas)).astype(np.float32)
+    log_scales = np.log(np.maximum(np.asarray(gs["scale"], np.float64), 1e-12)).astype(np.float32)
+    # interleaved [K,3] -> planar [3,K]
+    rest = sh[:, 3:].reshape(n, n_rest // 3, 3).transpose(0, 2, 1).reshape(n, n_rest)
+
+    names = (
+        ["x", "y", "z", "nx", "ny", "nz", "f_dc_0", "f_dc_1", "f_dc_2"]
+        + [f"f_rest_{i}" for i in range(n_rest)]
+        + ["opacity", "scale_0", "scale_1", "scale_2", "rot_0", "rot_1", "rot_2", "rot_3"]
+    )
+    out = np.zeros(n, dtype=[(nm, "<f4") for nm in names])
+    pw = np.asarray(gs["pw"], np.float32)
+    out["x"], out["y"], out["z"] = pw[:, 0], pw[:, 1], pw[:, 2]
+    for i in range(3):
+        out[f"f_dc_{i}"] = sh[:, i]
+    for i in range(n_rest):
+        out[f"f_rest_{i}"] = rest[:, i]
+    out["opacity"] = opacity
+    for i in range(3):
+        out[f"scale_{i}"] = log_scales[:, i]
+    rot = np.asarray(gs["rot"], np.float32)
+    for i in range(4):
+        out[f"rot_{i}"] = rot[:, i]
+
+    header = (
+        "ply\nformat binary_little_endian 1.0\n"
+        f"element vertex {n}\n"
+        + "".join(f"property float {nm}\n" for nm in names)
+        + "end_header\n"
+    )
+    with open(path, "wb") as f:
+        f.write(header.encode())
+        out.tofile(f)
+
+
+def save_gs(path, gs):
+    """Save a recarray as .ply (by extension) or .npy."""
+    p = str(path)
+    if p.endswith(".ply"):
+        save_ply(p, gs)
+    else:
+        np.save(p, gs)
+
+
+def save_pool(path, pool):
+    """Save a pool's alive gaussians, activated: the .npy record format, or
+    an official-3DGS .ply by extension."""
+    pws, shs, alphas, scales, rots, alive = (x.detach().cpu().numpy()
+                                             for x in pool.activated())
+    keep = alive.astype(bool)
+    save_gs(path, arrays_to_recarray(pws[keep], rots[keep], scales[keep], alphas[keep],
+                                     shs[keep]))
+
+
+def load_pool(path, capacity=None, device="cuda"):
+    """Load a gaussian file into a fresh pool on ``device``."""
+    a = recarray_to_arrays(load_gs(path))
+    return pool_from_arrays(a["pws"], a["rots"], a["scales"], a["alphas"], a["shs"],
+                            capacity=capacity, device=device)

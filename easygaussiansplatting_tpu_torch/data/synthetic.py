@@ -1,12 +1,14 @@
-"""Synthetic scene generation for tests and the chip smoke run.
+"""Synthetic scene generation for tests, the train CLI and the chip smoke run.
 
-Port of easygaussiansplatting_tpu/data/synthetic.py (scene side). It is numpy
-on both sides, so the same seed gives bit-equal arrays and cameras.
+Port of easygaussiansplatting_tpu/data/synthetic.py. The scene is numpy on
+both sides, so the same seed gives bit-equal arrays and cameras; the
+ground-truth images are rendered by the port.
 """
 
 import numpy as np
 
 from easygaussiansplatting_tpu_torch.models import Camera
+from easygaussiansplatting_tpu_torch.ops.rasterize import render
 
 
 def look_at_camera(pos, target, width, height, f, up=(0.0, 0.0, 1.0), cam_id=0):
@@ -65,3 +67,13 @@ def make_synthetic_scene(seed=0, n_gaussians=96, n_cams=6, width=64, height=48,
         "pws": pws, "rots": rots, "scales": scales, "alphas": alphas, "shs": shs,
         "cameras": cams, "scene_size": scene_size,
     }
+
+
+def render_gt_images(scene, config=None, device="cuda"):
+    """The ground-truth images [3,H,W] of the scene's cameras, rendered by
+    the port on ``device`` (with the config's backend and patch budget when
+    one is given)."""
+    kw = {} if config is None else dict(backend=config.backend, max_patches=config.max_patches)
+    args = [scene[k] for k in ("pws", "shs", "alphas", "scales", "rots")]
+    return [render(*args, cam, need_grads=False, device=device, **kw)[0]
+            for cam in scene["cameras"]]

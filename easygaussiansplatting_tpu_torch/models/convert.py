@@ -6,6 +6,9 @@ parameter arrays (``pws``, ``shs``, ``alphas``, ``scales``, ``rots`` as
 numpy) become float32 tensors here, a JAX camera's numpy leaves (or a camera
 dict) become the port's :class:`Camera`, and the leaves of a JAX
 ``GaussianPool``, ``AdamState`` and ``DensityStats`` become the port's.
+``train/checkpoint.py`` reads a checkpoint through these too, a JAX-written
+one included, whose PRNG key becomes a generator
+(:func:`generator_from_jax_key`).
 """
 
 import numpy as np
@@ -78,3 +81,14 @@ def density_stats_from_numpy(grad_accum, cunt, device="cuda"):
     """A JAX ``DensityStats``'s leaves -> the port's on ``device``."""
     dev = resolve_device(device)
     return DensityStats(grad_accum=_tensor(grad_accum, dev), cunt=_tensor(cunt, dev, np.int32))
+
+
+def generator_from_jax_key(key_words):
+    """A CPU ``torch.Generator`` for a JAX PRNG key's two uint32 words,
+    seeded with (word0 << 32) | word1. It does not reproduce the JAX key's
+    random stream (the two libraries draw differently from one seed): a run
+    resumed from a JAX checkpoint continues with the port's own noise."""
+    w = np.asarray(key_words, np.uint64).reshape(-1)
+    if w.shape != (2,):
+        raise ValueError(f"a JAX PRNG key has two uint32 words, got {np.asarray(key_words).shape}")
+    return torch.Generator().manual_seed(int((w[0] << np.uint64(32)) | w[1]))

@@ -22,6 +22,16 @@ exactly; what changed is how some of them are computed:
   JAX package sorts (order, counts) pairs): ``order`` is a permutation, so
   the indices are unique.
 
+The JAX package's opt-in sort routes are read from the same flags at the
+same places, on each call: ``EGS_RADIX_SORT=1`` sorts by tile with K8
+(ops/kernels/radix.py) on every backend; ``EGS_LEX_SORT=1`` sorts the
+two-word (tile, slot) key with K7 (ops/kernels/sort.py) where the packed key
+would overflow 32 bits, on the kernel backend (the JAX package: on the TPU);
+``EGS_XLA_GRAD_SORT=0`` inverts ``gsid_counts`` by K7, on the kernel
+backend. With ``use_kernels=False`` the radix route runs K8's plain version
+and the two K7 routes are not taken. Every route's integer outputs equal the
+default route's.
+
 Overflow policy: if the patch count exceeds ``max_patches`` (or the row count
 ``max_rows``), the patches of the *deepest* Gaussians are dropped and
 ``n_dropped`` / ``rows_dropped`` report the loss.
@@ -29,7 +39,8 @@ Overflow policy: if the patch count exceeds ``max_patches`` (or the row count
 
 import torch
 
-from easygaussiansplatting_tpu_torch.ops.kernels import scan
+from easygaussiansplatting_tpu_torch.ops.kernels import radix, scan, sort
+from easygaussiansplatting_tpu_torch.utils.envflag import env_flag
 
 TILE = 16  # pixels per tile edge
 ALPHA_SKIP = 0.002  # blend skip threshold (ops/blend.py)
@@ -198,9 +209,20 @@ def bin_gaussians(us, depths, areas, valid, *, width, height, max_patches,
         0, tile_id.long(), torch.ones_like(tile_id))[:n_tiles]
     tile_start = torch.cumsum(tile_cnt, 0, dtype=i32) - tile_cnt
 
-    # Sort by tile id keeping the slot (= depth) order within each tile.
-    tile_sorted, perm = torch.sort(tile_id, stable=True)
-    gsid_sorted = gsid[perm]
+    # Sort by tile id keeping the slot (= depth) order within each tile. Every
+    # route is stable by (tile, slot), so their outputs are equal.
+    mp_bits = max(1, (max_patches - 1).bit_length())
+    if env_flag("EGS_RADIX_SORT"):
+        # K8: a stable counting sort by tile (n_tiles is the padding bucket)
+        by_tile = radix.counting_sort_by_tile if use_kernels else _counting_sort_by_tile_plain
+        tile_sorted, gsid_sorted = by_tile(tile_id, gsid, n_tiles=n_tiles)
+    elif use_kernels and (n_tiles + 1) << mp_bits > 2**32 and env_flag("EGS_LEX_SORT"):
+        # K7 on the two-word key (tile, slot), where the JAX package's packed
+        # one-word key overflows 32 bits; the unique slot makes it stable
+        tile_sorted, _, gsid_sorted = sort.sort_pairs(tile_id, m, gsid, n_keys=2)
+    else:
+        tile_sorted, perm = torch.sort(tile_id, stable=True)
+        gsid_sorted = gsid[perm]
 
     out = {
         "patch_gsid": gsid_sorted,
@@ -220,10 +242,19 @@ def bin_gaussians(us, depths, areas, valid, *, width, height, max_patches,
         lo_cnt = torch.minimum(wcum_pad[torch.clamp(rstart, 0, max_rows).long()], kept)
         hi_cnt = torch.minimum(
             wcum_pad[torch.clamp(rstart + row_counts, 0, max_rows).long()], kept)
-        counts = torch.empty(n, dtype=i32, device=dev)
-        counts[order.long()] = (hi_cnt - lo_cnt).to(i32)
+        count_sorted = (hi_cnt - lo_cnt).to(i32)  # by depth rank
+        if use_kernels and not env_flag("EGS_XLA_GRAD_SORT", default=True):
+            # K7: sorting (order, counts) by the permutation inverts it
+            _, counts = sort.sort_pairs(order, count_sorted)
+        else:
+            counts = torch.empty(n, dtype=i32, device=dev)
+            counts[order.long()] = count_sorted
         out["gsid_counts"] = counts
     return out
+
+
+def _counting_sort_by_tile_plain(tile, *vals, n_tiles):
+    return radix.counting_sort_plain(tile, *vals, key_bound=n_tiles + 1)
 
 
 def dense_tile_lists(binning, *, max_per_tile):

@@ -48,6 +48,9 @@ SIGNATURES = {
     "egs_segmented_cumsum_f32": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
     "egs_rasterize_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "egs_rasterize_bwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    # the payload columns go in as two host arrays of device pointers
+    "egs_sort": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _L, _L, _L, _L, _I, _P],
+    "egs_counting_sort": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _I, _P],
 }
 
 

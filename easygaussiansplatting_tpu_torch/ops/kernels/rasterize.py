@@ -19,19 +19,22 @@ on the TPU: a stable sort of the live patches' gaussian ids, a gather of the
 rows by sorted position, K6 (``scan.segmented_cumsum``) with starts at key
 changes, and a gather at each gaussian's segment end, read from the cumsum of
 binning's ``gsid_counts``. Every sum runs in a fixed order, with no atomics,
-so the gradients are the same on every run. The sort and the gathers are
-library operations, as they are XLA operations in the JAX package.
+so the gradients are the same on every run. By default the sort and the
+gathers are library operations, as they are XLA operations in the JAX
+package; the JAX package's opt-in routes sort with K7 or K8 instead
+(:func:`sort_reduce_grads`).
 """
 
 import torch
 
 from easygaussiansplatting_tpu_torch.ops.binning import num_tiles
-from easygaussiansplatting_tpu_torch.ops.kernels import _build, scan
+from easygaussiansplatting_tpu_torch.ops.kernels import _build, radix, scan, sort
 from easygaussiansplatting_tpu_torch.ops.kernels.preprocess import LIVE_COLS, TABLE_COLS
 from easygaussiansplatting_tpu_torch.ops.rasterize_tiled import (
     rasterize_tiled,
     rasterize_tiled_bwd,
 )
+from easygaussiansplatting_tpu_torch.utils.envflag import env_flag
 
 INT32_MAX = 2**31 - 1
 
@@ -145,16 +148,48 @@ def sort_reduce_grads(rows, patch_gsid, gsid_counts, use_kernels=True):
     """Per-patch gradient rows [R, M] -> per-gaussian sums [n, R] by sort and
     segmented sum (``_sort_reduce_grads`` of the JAX package).
     ``gsid_counts`` [n] are binning's per-gaussian patch counts.
-    ``use_kernels=False`` takes K6's plain version on any device."""
-    # dead and padding patches (gsid -1) key to INT32_MAX and sink to the end
-    key = torch.where(patch_gsid >= 0, patch_gsid, INT32_MAX)
-    skey, pos = torch.sort(key, stable=True)
-    flags = torch.ones(key.shape[0], dtype=torch.int32, device=rows.device)
+    ``use_kernels=False`` takes the plain versions of K6, K7 and K8 on any
+    device.
+
+    The sort follows the JAX package's flags, read on each call: by default
+    a stable library sort of (key, position) and a row gather;
+    ``EGS_XLA_GRAD_SORT=0`` sorts (key, position) with K7;
+    ``EGS_GRAD_PERM=0`` sorts the key with the R rows as K7's payload;
+    ``EGS_RADIX_REDUCE=1`` sorts (key, position) with K8, dead patches in
+    bucket n."""
+    n = gsid_counts.shape[0]
+    m = patch_gsid.shape[0]
+    live = patch_gsid >= 0
+    # dead and padding patches (gsid -1) key to INT32_MAX and sink to the
+    # end. That is also K7's pad key; its ties put the pads after them, and
+    # only live segments are read below in any case.
+    key = torch.where(live, patch_gsid, INT32_MAX)
+    pairs = sort.sort_pairs if use_kernels else sort.sort_pairs_plain
+    if env_flag("EGS_RADIX_REDUCE"):
+        by_key = radix.counting_sort if use_kernels else radix.counting_sort_plain
+        skey, pos = by_key(torch.where(live, patch_gsid, n), _positions(m, rows.device),
+                           key_bound=n + 1)
+        skey = torch.where(skey == n, INT32_MAX, skey)
+        svals = rows.index_select(1, pos)
+    elif env_flag("EGS_GRAD_PERM", default=True):
+        if env_flag("EGS_XLA_GRAD_SORT", default=True):
+            skey, pos = torch.sort(key, stable=True)
+        else:
+            skey, pos = pairs(key, _positions(m, rows.device))
+        svals = rows.index_select(1, pos)
+    else:
+        skey, *cols = pairs(key, *rows.contiguous())
+        svals = torch.stack(cols)
+    flags = torch.ones(m, dtype=torch.int32, device=rows.device)
     flags[1:] = (skey[1:] != skey[:-1]).to(torch.int32)  # a segment starts at each id change
     cumsum = scan.segmented_cumsum if use_kernels else scan.segmented_cumsum_plain
-    seg = cumsum(rows.index_select(1, pos), flags)
+    seg = cumsum(svals, flags)
     end = torch.clamp(torch.cumsum(gsid_counts, 0) - 1, 0, patch_gsid.shape[0] - 1)
     return torch.where((gsid_counts > 0)[:, None], seg.index_select(1, end).T, 0.0)
+
+
+def _positions(m, device):
+    return torch.arange(m, dtype=torch.int32, device=device)
 
 
 class RasterizeFunction(torch.autograd.Function):

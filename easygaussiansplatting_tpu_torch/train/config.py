@@ -5,11 +5,6 @@ the reference recipe, with the same defaults. The JAX ``tile``, ``k_chunk``
 and ``n_chunks`` fields are left out: the port blends 16x16 tiles only
 (``ops.binning.TILE``), its plain blend walks every chunk of a tile list
 (``ops.rasterize_tiled.K_CHUNK``), and its CUDA kernels take no chunk size.
-
-Nothing in the port reads the epoch and cadence fields, the adaptive patch
-budget's fields or ``capacity_headroom`` yet: the JAX epoch driver
-(``train``, ``PatchBudget``) reads them, and it is not ported. They stay so
-that a JAX configuration carries over field for field.
 """
 
 import dataclasses

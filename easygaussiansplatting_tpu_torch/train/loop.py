@@ -1,25 +1,41 @@
-"""The single-camera training step.
+"""The single-camera training step and the epoch driver.
 
 Port of easygaussiansplatting_tpu/train/loop.py (``render_pool_image``,
-``make_train_step``, ``_round_budget``): one camera per step, loss = 0.8 L1 +
-0.2 DSSIM, Adam (eps 1e-15) with per-group learning rates, and the
-screen-gradient statistics densification reads. Where the JAX step is a
-jitted pure function returning new state, this step updates the pool, the
-Adam state and the stats in place and returns the loss and the budget
-observation.
+``make_train_step``, ``PatchBudget``, ``_round_budget``, ``train``,
+``call_epoch_cb``): one camera per step, loss = 0.8 L1 + 0.2 DSSIM, Adam
+(eps 1e-15) with per-group learning rates, the screen-gradient statistics
+densification reads, and per epoch the adaptive patch budget, densify, prune
+and alpha reset. Where the JAX step is a jitted pure function returning new
+state, this step updates the pool, the Adam state and the stats in place and
+returns the loss and the budget observation.
+
+``StepCache`` and ``PatchBudget.predict`` are not ported: they hide jit
+recompiles of the step behind a background thread, and the port compiles
+nothing per budget rung. ``train`` builds a new step when the budget
+changes, at once.
 """
 
 import dataclasses
+import inspect
+import time
 
+import numpy as np
 import torch
 
 from easygaussiansplatting_tpu_torch.ops.loss import gau_loss
 from easygaussiansplatting_tpu_torch.ops.rasterize import render
 from easygaussiansplatting_tpu_torch.ops.stages import MIN_DEPTH
 from easygaussiansplatting_tpu_torch.train.config import TrainConfig
-from easygaussiansplatting_tpu_torch.train.density import update_density_stats
-from easygaussiansplatting_tpu_torch.train.optimizer import adam_update, make_lr_fns
+from easygaussiansplatting_tpu_torch.train.density import (
+    densify_and_prune,
+    density_stats_init,
+    reset_alpha,
+    split_noise,
+    update_density_stats,
+)
+from easygaussiansplatting_tpu_torch.train.optimizer import adam_init, adam_update, make_lr_fns
 from easygaussiansplatting_tpu_torch.utils.device import resolve_device
+from easygaussiansplatting_tpu_torch.utils.image import psnr
 
 
 def render_pool_image(pool, cam, config, us_offset=None, need_grads=True):
@@ -59,8 +75,7 @@ def make_train_step(config: TrainConfig, scene_size: float, max_steps: int,
 
     ``device`` is where the pool must lie; "cuda" (the default) raises
     without a card. ``max_patches`` overrides the config's patch budget and
-    scales an explicit row budget with it, as the JAX epoch driver's
-    ``PatchBudget`` asks (the driver is not ported yet).
+    scales an explicit row budget with it, as :class:`PatchBudget` asks.
     """
     dev = resolve_device(device)
     lr_fns = make_lr_fns(config, scene_size, max_steps)
@@ -113,3 +128,168 @@ def _round_budget(n, quantum=16384):
             j = r.bit_length() - 4  # r >= 8 so j >= 0
             r = ((r >> j) + 1) << j
     return r * quantum
+
+
+class PatchBudget:
+    """Epoch-granular adaptive max_patches on the :func:`_round_budget`
+    ladder: grows to budget_headroom x the observed patch count when that
+    nears the budget, shrinks when it falls below half."""
+
+    def __init__(self, config: TrainConfig):
+        self.config = config
+        self.quantum = config.budget_quantum
+        self.value = _round_budget(config.max_patches, self.quantum)
+
+    def update(self, observed_max: int) -> bool:
+        """Returns True if the budget changed (the step is rebuilt)."""
+        if not self.config.adaptive_budget:
+            return False
+        want = _round_budget(int(observed_max * self.config.budget_headroom), self.quantum)
+        if observed_max > 0.9 * self.value or want < 0.5 * self.value:
+            if want != self.value:
+                self.value = want
+                return True
+        return False
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def train(pool, cameras, gt_images, config: TrainConfig, scene_size, seed=0, log_fn=print,
+          eval_every=10, epoch_cb=None, adam_state=None, stats=None, start_epoch=0,
+          generator=None):
+    """Full training on the pool's device, updating ``pool`` (and
+    ``adam_state`` and ``stats`` when given) in place. cameras: list of
+    Camera (same W, H); gt_images: list of [3,H,W] images (tensors or
+    arrays). Pass adam_state / stats / start_epoch / generator (from
+    train.checkpoint.load_checkpoint) to resume. ``generator`` is the CPU
+    ``torch.Generator`` of the split noise, seeded with ``seed`` when not
+    given. Each epoch's camera order comes from
+    ``np.random.default_rng(seed + start_epoch)``, as in the JAX package, so
+    a resumed run does not replay an uninterrupted run's order. Returns
+    (pool, history)."""
+    dev = pool.pws.device
+    rng = np.random.default_rng(seed + start_epoch)
+    if generator is None:
+        generator = torch.Generator().manual_seed(seed)
+    n = len(cameras)
+    max_steps = config.epochs * n
+    budget = PatchBudget(config)
+
+    def step_for(max_patches):
+        return make_train_step(config, scene_size, max_steps, max_patches=max_patches,
+                               device=dev)
+
+    train_step = step_for(budget.value)
+    if adam_state is None:
+        adam_state = adam_init(pool.params())
+    if stats is None:
+        stats = density_stats_init(pool.capacity, dev)
+    gt_images = [torch.as_tensor(g, dtype=torch.float32, device=dev) for g in gt_images]
+
+    history = {"loss": [], "psnr": [], "n_alive": [], "epoch_time": [],
+               "overflow_steps": []}
+    overflow_warned = False
+    for epoch in range(start_epoch, config.epochs):
+        t0 = time.time()
+        order = rng.permutation(n)
+        losses = []
+        patch_peak = []
+        drops = []
+        # host-vs-device attribution: one step synchronised gives the step's
+        # time with its device work finished; the epoch's wall minus
+        # n * t_step_device is what the host adds
+        t_dev0 = time.time()
+        loss0, binfo0 = train_step(pool, adam_state, stats, cameras[order[0]],
+                                   gt_images[order[0]])
+        _sync(dev)
+        t_step_device = time.time() - t_dev0
+        losses.append(loss0)
+        patch_peak.append(binfo0["obs"])
+        drops.append(binfo0["dropped"])
+        for j, i in enumerate(order[1:]):
+            loss, binfo = train_step(pool, adam_state, stats, cameras[i], gt_images[i])
+            losses.append(loss)
+            patch_peak.append(binfo["obs"])
+            drops.append(binfo["dropped"])
+            # mid-epoch overflow reaction: a densification spike past the
+            # patch/row budget must not drop the deepest patches for a whole
+            # epoch. j counts from the second step (the first ran above), so
+            # the global step index is j + 2; the host reads the drop counts
+            # every 16 steps.
+            if config.adaptive_budget and (j + 2) % 16 == 0:
+                recent = int(torch.stack(drops[-16:]).max())
+                if recent > 0:
+                    if not overflow_warned:
+                        overflow_warned = True
+                        log_fn(
+                            f"[epoch {epoch + 1}] WARNING: patch budget "
+                            f"overflow — {recent} patches/rows dropped in a "
+                            f"step (budget {budget.value}); growing budget"
+                        )
+                    if budget.update(int(torch.stack(patch_peak).max())):
+                        log_fn(
+                            f"[epoch {epoch + 1}] patch budget -> "
+                            f"{budget.value} (mid-epoch overflow)"
+                        )
+                        train_step = step_for(budget.value)
+        # drain: everything still queued on the device finishes here
+        avg_loss = float(torch.stack(losses).mean())
+        t_drain = time.time()
+        history.setdefault("t_steps_wall", []).append(t_drain - t0)
+        history.setdefault("t_step_device", []).append(t_step_device)
+        history["loss"].append(avg_loss)
+        history["epoch_time"].append(time.time() - t0)
+        history["overflow_steps"].append(int((torch.stack(drops) > 0).sum()))
+        peak = int(torch.stack(patch_peak).max())
+        if budget.update(peak):
+            log_fn(f"[epoch {epoch + 1}] patch budget -> {budget.value}")
+            train_step = step_for(budget.value)
+
+        e = epoch + 1
+        t_dfy = time.time()
+        if e % config.densify_every_epochs == 0 and e <= config.densify_until_epoch and e > 1:
+            noise = split_noise(pool.capacity, generator, dev)
+            report = densify_and_prune(pool, adam_state, stats, noise, scene_size, config)
+            log_fn(
+                f"[epoch {e}] densify: pruned={int(report['n_pruned'])} "
+                f"cloned={int(report['n_cloned'])} split={int(report['n_split'])} "
+                f"dropped={int(report['n_dropped'])} alive={int(report['n_alive'])}"
+            )
+        history.setdefault("t_densify", []).append(time.time() - t_dfy)
+        if e % config.reset_alpha_every_epochs == 0 and e < config.epochs:
+            # never end training on a reset: the final model would carry the
+            # clamped opacities
+            reset_alpha(pool, adam_state, config)
+            log_fn(f"[epoch {e}] alpha reset")
+
+        history["n_alive"].append(int(pool.n_alive()))
+        history.setdefault("budget", []).append(int(budget.value))
+        if e % eval_every == 0 or e == config.epochs:
+            img, _ = render_pool_image(pool, cameras[0], config, need_grads=False)
+            p = float(psnr(torch.clamp(img, 0, 1), torch.clamp(gt_images[0], 0, 1)))
+            history["psnr"].append((e, p))
+            log_fn(f"[epoch {e}] loss={avg_loss:.5f} psnr={p:.2f} alive={history['n_alive'][-1]}")
+        else:
+            log_fn(f"[epoch {e}] loss={avg_loss:.5f} alive={history['n_alive'][-1]}")
+        if epoch_cb is not None:
+            call_epoch_cb(epoch_cb, e, pool, adam_state, stats, generator, history)
+    return pool, history
+
+
+def call_epoch_cb(cb, e, pool, adam_state, stats, generator, history):
+    """Invoke an epoch callback ``cb(e, pool, adam_state, stats, generator)``;
+    pass ``history=`` only to callbacks that accept it."""
+    try:
+        params = inspect.signature(cb).parameters
+        wants_history = "history" in params or any(
+            p.kind == inspect.Parameter.VAR_KEYWORD for p in params.values()
+        )
+    except (TypeError, ValueError):
+        wants_history = False
+    if wants_history:
+        cb(e, pool, adam_state, stats, generator, history=history)
+    else:
+        cb(e, pool, adam_state, stats, generator)

@@ -1,9 +1,18 @@
-"""Image output: an 8-bit RGB PNG writer on the standard library alone."""
+"""Image metrics and output: PSNR, and an 8-bit RGB PNG writer on the
+standard library alone."""
 
 import struct
 import zlib
 
 import numpy as np
+import torch
+
+
+def psnr(img, ref, max_val=1.0):
+    """Peak signal-to-noise ratio between two image tensors of one shape;
+    port of the JAX package's ``utils.image.psnr``."""
+    mse = torch.mean((img - ref) ** 2)
+    return 10.0 * torch.log10(max_val**2 / mse)
 
 
 def to_uint8(img):

@@ -133,3 +133,80 @@ def test_gsid_counts_match_jax(seed, budget):
     gsid = got["patch_gsid"].numpy()
     np.testing.assert_array_equal(counts, np.bincount(gsid[gsid >= 0], minlength=len(counts)))
     assert "gsid_counts" not in _bin_both(a, True, **budget)[0]
+
+
+def _spy(monkeypatch, module, name, calls):
+    fn = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        calls.append(name)
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, spy)
+
+
+@pytest.mark.parametrize("flag,value", [("EGS_RADIX_SORT", "1"), ("EGS_XLA_GRAD_SORT", "0")])
+@pytest.mark.parametrize("seed,budget", [
+    (0, dict(max_patches=4096)),
+    (2, dict(max_patches=256, max_rows=4096)),   # patch budget overflows
+])
+def test_sort_routes_match_default_route_and_jax(seed, budget, flag, value, monkeypatch):
+    """The JAX package's opt-in sort routes, read from the same flags: K8's
+    counting sort by tile on every backend (its plain version on the
+    all-plain path), and the K7 inversion of gsid_counts on the kernel
+    backend only (CPU tensors take K7's plain version inside the wrapper).
+    Every integer output equals the default route's and JAX's default
+    binning (computed before the flag is set: the jitted JAX binning reads
+    flags while tracing and keeps the trace)."""
+    a = _stage_arrays(seed)
+    default, want = _bin_both(a, True, gsid_counts=True, **budget)
+    monkeypatch.setenv(flag, value)
+    calls = []
+    _spy(monkeypatch, binning.radix, "counting_sort", calls)
+    _spy(monkeypatch, binning.radix, "counting_sort_plain", calls)
+    _spy(monkeypatch, binning.sort, "sort_pairs", calls)
+    for use_kernels in (True, False):
+        del calls[:]
+        got = binning.bin_gaussians(
+            torch.from_numpy(a["us"]), torch.from_numpy(a["depths"]),
+            torch.from_numpy(a["areas"]), torch.from_numpy(a["valid"]), width=W, height=H,
+            cinv2ds=torch.from_numpy(a["cinv2ds"]), alphas=torch.from_numpy(a["alphas"]),
+            gsid_counts=True, use_kernels=use_kernels, **budget)
+        if flag == "EGS_RADIX_SORT":
+            # the wrapper takes its plain version for CPU tensors
+            assert calls == (["counting_sort", "counting_sort_plain"] if use_kernels
+                             else ["counting_sort_plain"])
+        else:
+            assert calls == (["sort_pairs"] if use_kernels else [])
+        for k in INT_KEYS + ("gsid_counts",):
+            assert torch.equal(got[k], default[k]), k
+        _assert_equal(got, want)
+        np.testing.assert_array_equal(got["gsid_counts"].numpy(), np.asarray(want["gsid_counts"]))
+
+
+def test_lex_sort_route_matches_default_route(monkeypatch):
+    """EGS_LEX_SORT=1 takes K7's two-word (tile, slot) sort only where the
+    JAX package's packed key would overflow 32 bits, (n_tiles + 1) <<
+    mp_bits > 2**32, and on the kernel backend: 65,536 tiles of a
+    16384x1024 image at a 2^17 patch budget (mp_bits 17). The JAX binning
+    is left out at this size: its [n_tiles, max_rows] compare-reduce alone
+    is 2^31 elements."""
+    rng = np.random.default_rng(7)
+    n, w, h = 2000, 16384, 1024
+    args = [torch.from_numpy(x) for x in (
+        (rng.random((n, 2)) * [w, h]).astype(np.float32),
+        (rng.random(n) + 1.0).astype(np.float32),
+        (rng.random((n, 2)) * 40).astype(np.float32),
+        rng.random(n) < 0.9)]
+    kw = dict(width=w, height=h, max_patches=2**17, max_rows=2**14, gsid_counts=True)
+    assert (binning.num_tiles(w, h)[0] * binning.num_tiles(w, h)[1] + 1) << 17 > 2**32
+    default = binning.bin_gaussians(*args, **kw)
+    monkeypatch.setenv("EGS_LEX_SORT", "1")
+    calls = []
+    _spy(monkeypatch, binning.sort, "sort_pairs", calls)
+    got = binning.bin_gaussians(*args, **kw)
+    assert calls == ["sort_pairs"] and int(got["total"]) > 10_000
+    for k in INT_KEYS + ("gsid_counts",):
+        assert torch.equal(got[k], default[k]), k
+    binning.bin_gaussians(*args, use_kernels=False, **kw)
+    assert calls == ["sort_pairs"]  # not on the all-plain path

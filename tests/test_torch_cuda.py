@@ -18,7 +18,7 @@ from easygaussiansplatting_tpu_torch.models import Camera
 from easygaussiansplatting_tpu_torch.models.convert import gaussians_from_numpy
 from easygaussiansplatting_tpu_torch.models.gaussians import pool_from_arrays
 from easygaussiansplatting_tpu_torch.ops.binning import bin_gaussians
-from easygaussiansplatting_tpu_torch.ops.kernels import preprocess, rasterize, scan
+from easygaussiansplatting_tpu_torch.ops.kernels import preprocess, radix, rasterize, scan, sort
 from easygaussiansplatting_tpu_torch.ops.rasterize import raster_from_aux, render
 from easygaussiansplatting_tpu_torch.train.config import TrainConfig
 from easygaussiansplatting_tpu_torch.train.loop import loss_and_grads
@@ -209,3 +209,97 @@ def test_kernel_gradients_are_bit_equal_across_runs(cuda):
     _, g2, _ = loss_and_grads(pool, cam, gt, cfg)
     for k in g1:
         assert torch.equal(g1[k], g2[k]), k
+
+
+def _sort_inputs(m, seed, n_keys):
+    """Keys with duplicates and a tail keyed INT32_MAX (the reduce's dead
+    patches, which tie with K7's pads), an int and a float payload."""
+    g = torch.Generator().manual_seed(seed)
+    keys = torch.randint(0, max(2, m // 8), (m,), generator=g, dtype=torch.int32)
+    keys[torch.rand(m, generator=g) < 0.2] = sort.INT32_MAX
+    vals = [torch.randint(0, 50, (m,), generator=g, dtype=torch.int32)] if n_keys == 2 else []
+    vals += [torch.arange(m, dtype=torch.int32), torch.randn(m, generator=g)]
+    return keys, vals
+
+
+@pytest.mark.parametrize("n_keys", [1, 2])
+@pytest.mark.parametrize("m", [1, 2, 1000, 2048, 2049, 65536, 557056])
+def test_sort_kernel_matches_plain(cuda, m, n_keys):
+    """The kernel breaks ties by position, so it equals the stable plain
+    version exactly, payloads (float bits included) and all."""
+    keys, vals = _sort_inputs(m, m + n_keys, n_keys)
+    before = sort.sort_pairs.launches
+    got = sort.sort_pairs(keys.to(cuda), *(v.to(cuda) for v in vals), n_keys=n_keys)
+    assert sort.sort_pairs.launches == before + 1
+    want = sort.sort_pairs_plain(keys, *vals, n_keys=n_keys)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("block", [128, 2048, 8192])
+def test_sort_blocks_kernel_matches_plain(cuda, block):
+    keys, vals = _sort_inputs(16384, block, 2)
+    got = sort.sort_blocks(keys.to(cuda), *(v.to(cuda) for v in vals), block=block, n_keys=2)
+    want = sort.sort_blocks_plain(keys, *vals, block=block, n_keys=2)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("key_bound", [1, 64, 2172, 65537, 5_000_000])
+@pytest.mark.parametrize("m", [1, 2047, 2048, 2049, 557056])
+def test_counting_sort_kernel_matches_plain(cuda, m, key_bound):
+    g = torch.Generator().manual_seed(m + key_bound)
+    key = torch.randint(0, key_bound, (m,), generator=g, dtype=torch.int32)
+    key[torch.rand(m, generator=g) < 0.3] = key_bound - 1  # a heavy top bucket
+    vals = [torch.arange(m, dtype=torch.int32), torch.randn(m, generator=g)]
+    before = radix.counting_sort.launches
+    got = radix.counting_sort(key.to(cuda), *(v.to(cuda) for v in vals), key_bound=key_bound)
+    assert radix.counting_sort.launches == before + 1
+    want = radix.counting_sort_plain(key, *vals, key_bound=key_bound)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+ROUTES = {"radix": {"EGS_RADIX_SORT": "1", "EGS_RADIX_REDUCE": "1"},
+          "xla_grad_sort_off": {"EGS_XLA_GRAD_SORT": "0"},
+          "grad_perm_off": {"EGS_GRAD_PERM": "0"}}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_route_step_matches_default_step(cuda, route, monkeypatch):
+    """Every sort route is stable, so binning, gsid_counts and the gradients
+    equal the default route's bit for bit; the route's kernel ran."""
+    pool, cam, gt = _pool_and_gt(cuda)
+    cfg = TrainConfig(max_patches=16384)
+    loss, grads, aux = loss_and_grads(pool, cam, gt, cfg)
+    counts = (sort.sort_pairs.launches, radix.counting_sort.launches)
+    for k, v in ROUTES[route].items():
+        monkeypatch.setenv(k, v)
+    loss_r, grads_r, aux_r = loss_and_grads(pool, cam, gt, cfg)
+    ran = (sort.sort_pairs.launches - counts[0], radix.counting_sort.launches - counts[1])
+    assert ran == {"radix": (0, 2), "xla_grad_sort_off": (2, 0), "grad_perm_off": (1, 0)}[route]
+    assert torch.equal(loss, loss_r)
+    for k in grads:
+        assert torch.equal(grads[k], grads_r[k]), k
+    for k in ("patch_gsid", "patch_tile", "tile_start", "tile_cnt", "gsid_counts"):
+        assert torch.equal(aux["binning"][k], aux_r["binning"][k]), k
+
+
+def test_lex_sort_route_matches_default_binning(cuda, monkeypatch):
+    """EGS_LEX_SORT=1 where (n_tiles + 1) << mp_bits > 2**32: 65,536 tiles
+    at a 2^17 patch budget."""
+    g = torch.Generator().manual_seed(7)
+    n, w, h = 3000, 16384, 1024
+    us = torch.rand((n, 2), generator=g) * torch.tensor([w, h])
+    depths = torch.rand(n, generator=g) + 1.0
+    areas = torch.rand((n, 2), generator=g) * 40
+    valid = torch.rand(n, generator=g) < 0.9
+    args = [t.to(cuda) for t in (us, depths, areas, valid)]
+    kw = dict(width=w, height=h, max_patches=2**17, max_rows=2**15, gsid_counts=True)
+    want = bin_gaussians(*args, **kw)
+    monkeypatch.setenv("EGS_LEX_SORT", "1")
+    before = sort.sort_pairs.launches
+    got = bin_gaussians(*args, **kw)
+    assert sort.sort_pairs.launches == before + 1
+    for k in ("patch_gsid", "patch_tile", "tile_start", "tile_cnt", "total", "gsid_counts"):
+        assert torch.equal(got[k], want[k]), k

@@ -187,3 +187,57 @@ def test_bwd_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="g_image"):
         rasterize.rasterize_bwd(table, gsid, start, cnt, img[:, :8], tau, cont, width=32,
                                 height=16)
+
+
+REDUCE_FLAGS = ("EGS_RADIX_REDUCE", "EGS_GRAD_PERM", "EGS_XLA_GRAD_SORT")
+
+
+@pytest.mark.parametrize("route,kernel", [
+    ({}, None),
+    ({"EGS_XLA_GRAD_SORT": "0"}, "sort_pairs"),
+    ({"EGS_GRAD_PERM": "0"}, "sort_pairs"),
+    ({"EGS_RADIX_REDUCE": "1"}, "counting_sort"),
+])
+def test_sort_reduce_routes_match_jax_and_scatter(route, kernel, monkeypatch):
+    """The gradient reduce under each of the JAX package's sort routes (the
+    flags are read on each call on both sides) against JAX
+    ``_sort_reduce_grads`` under the same flags and the numpy scatter-add,
+    at tests/test_pallas.py's atol 1e-4; the patch->gaussian map has the
+    real structure (contiguous per-gaussian patches, a dead tail, unused
+    gaussians) and the patches arrive permuted."""
+    from easygaussiansplatting_tpu.ops.pallas.rasterize import GRAD_USED, _sort_reduce_grads
+
+    rng = np.random.default_rng(0)
+    n, m = 37, 512
+    counts = rng.integers(0, 40, size=n).astype(np.int32)
+    counts[rng.integers(0, n, size=5)] = 0
+    gsid = np.concatenate([np.full(c, g, np.int32) for g, c in enumerate(counts)])[:m]
+    counts = np.bincount(gsid, minlength=n).astype(np.int32)
+    live = np.zeros(m, bool)
+    live[: gsid.shape[0]] = True
+    gsafe = np.zeros(m, np.int32)
+    gsafe[: gsid.shape[0]] = gsid
+    perm = rng.permutation(m)
+    rows = rng.normal(size=(GRAD_USED, m)).astype(np.float32)
+    rows[:, ~live[perm]] = 0.0
+    for flag in REDUCE_FLAGS:
+        monkeypatch.delenv(flag, raising=False)
+    for k, v in route.items():
+        monkeypatch.setenv(k, v)
+    want_jax = np.asarray(_sort_reduce_grads(jnp.asarray(rows), jnp.asarray(gsafe[perm]),
+                                             jnp.asarray(live[perm]), jnp.asarray(counts), n))
+    want = np.zeros((GRAD_USED, n), np.float32)
+    np.add.at(want.T, gsafe[perm][live[perm]], rows.T[live[perm]])
+    patch_gsid = torch.from_numpy(np.where(live[perm], gsafe[perm], -1).astype(np.int32))
+    calls = []
+    module = rasterize.radix if kernel == "counting_sort" else rasterize.sort
+    if kernel is not None:
+        fn = getattr(module, kernel)
+        monkeypatch.setattr(module, kernel, lambda *a, **kw: calls.append(kernel) or fn(*a, **kw))
+    for use_kernels in (True, False):
+        got = rasterize.sort_reduce_grads(torch.from_numpy(rows), patch_gsid,
+                                          torch.from_numpy(counts), use_kernels).numpy()
+        assert got.shape == (n, GRAD_USED)
+        np.testing.assert_allclose(got.T, want_jax, atol=1e-4)
+        np.testing.assert_allclose(got.T, want, atol=1e-4)
+    assert calls == ([] if kernel is None else [kernel])  # the kernel wrapper, on its route

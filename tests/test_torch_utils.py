@@ -1,5 +1,5 @@
-"""PyTorch port: SH basis, camera, fixtures, synthetic scenes, gaussian I/O
-and the numpy -> tensor conversions, against the JAX package."""
+"""PyTorch port: SH basis, camera, fixtures, synthetic scenes, gaussian I/O,
+PSNR and the numpy -> tensor conversions, against the JAX package."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +13,7 @@ from easygaussiansplatting_tpu.data.gau_io import load_gs as jax_load_gs
 from easygaussiansplatting_tpu.data.synthetic import make_synthetic_scene as jax_scene
 from easygaussiansplatting_tpu.models import Camera as JaxCamera
 from easygaussiansplatting_tpu.utils import sh as jax_sh
+from easygaussiansplatting_tpu.utils.image import psnr as jax_psnr
 from easygaussiansplatting_tpu_torch.data import example_camera, example_gaussians
 from easygaussiansplatting_tpu_torch.data.gau_io import load_gs, recarray_to_arrays
 from easygaussiansplatting_tpu_torch.data.synthetic import make_synthetic_scene
@@ -20,7 +21,7 @@ from easygaussiansplatting_tpu_torch.models import Camera
 from easygaussiansplatting_tpu_torch.models.convert import camera_from_numpy, gaussians_from_numpy
 from easygaussiansplatting_tpu_torch.utils import sh
 from easygaussiansplatting_tpu_torch.utils.device import resolve_device
-from easygaussiansplatting_tpu_torch.utils.image import save_png, to_uint8
+from easygaussiansplatting_tpu_torch.utils.image import psnr, save_png, to_uint8
 
 torch.set_num_threads(2)
 
@@ -139,3 +140,13 @@ def test_save_png_roundtrip(tmp_path):
     rgb = to_uint8(img)
     save_png(tmp_path / "a.png", rgb)
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "a.png")), rgb)
+
+
+@pytest.mark.parametrize("max_val", [1.0, 255.0])
+def test_psnr_matches_jax(rng, max_val):
+    img = (rng.random((3, 24, 32)) * max_val).astype(np.float32)
+    ref = np.clip(img + rng.normal(scale=0.05 * max_val, size=img.shape), 0, max_val)
+    ref = ref.astype(np.float32)
+    want = float(jax_psnr(jnp.asarray(img), jnp.asarray(ref), max_val=max_val))
+    got = float(psnr(torch.from_numpy(img), torch.from_numpy(ref), max_val=max_val))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
