@@ -24,10 +24,19 @@ gaussians, SH degree 3, 979x546, max_patches 557,056, max_rows 229,376):
   131,072 with densify at epochs 2 and 4 and the adaptive budget, a
   checkpoint at epoch 2, and the resume from it held bit-equal to the resume
   from the state kept in memory;
-* the render, train and bench CLIs once each.
+* the K9 probe (``probes.micro_bench.run``: the three grid-overhead kernels
+  and binning's sub-steps at scripts/micro_bench.py's sizes) and the K10
+  probe (``probes.exp_dma_stream.run``: 4,096 chunked row sums at runtime
+  offsets), each kernel then held against its plain version with a planted
+  fault refused, timed beside its bytes bound;
+* the render, train and bench CLIs once each, the train CLI once more with
+  --preview --profile --debug-nans, the eval CLI on the train CLI's
+  final.npy, the eval's per-view function on the driver's final pool
+  against the 4 views at full width, and the gradient gate
+  (``verify_gradients``, 36 checks) in a subprocess.
 
-Each path's (or route's) kernel launch counts are set to 0 just before it
-runs and read just after. Any failed check exits non-zero.
+Each path's (or route's, or probe's) kernel launch counts are set to 0 just
+before it runs and read just after. Any failed check exits non-zero.
 
 Output: per-phase lines, then the card's name and power limit as nvidia-smi
 gives them, then on its own line a JSON object {"kernels": [...]} (per
@@ -44,6 +53,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -53,6 +63,7 @@ import numpy as np
 import torch
 
 from easygaussiansplatting_tpu_torch.data.synthetic import make_synthetic_scene
+from easygaussiansplatting_tpu_torch.eval import evaluate_views
 from easygaussiansplatting_tpu_torch.models.convert import gaussians_from_numpy
 from easygaussiansplatting_tpu_torch.models.gaussians import pool_from_arrays
 from easygaussiansplatting_tpu_torch.ops import stages
@@ -77,7 +88,9 @@ from easygaussiansplatting_tpu_torch.train.loop import (
     make_train_step,
     train,
 )
+from easygaussiansplatting_tpu_torch.probes import exp_dma_stream, micro_bench
 from easygaussiansplatting_tpu_torch.train.optimizer import adam_init
+from easygaussiansplatting_tpu_torch.utils.image import psnr
 
 ROOT = Path(__file__).resolve().parent
 
@@ -141,6 +154,17 @@ K6_RTOL = 1e-5
 # may run in another order, each group within ROUTE_REL * max|g|. (K7 breaks
 # ties by position, so it is stable and the sums run in the same order.)
 ROUTE_REL = 1e-4
+# K9b and K9v against their plain versions: float32 sums of each tile's
+# chunks (K9b: the same adds in the same order; K9v: the 256 pixels in
+# another order), within 1e-6 of the sum of |x| behind each value (the fp32
+# bound is ~log2(256) * 2^-24 = 4.8e-7 of it). K10: float32 column sums of
+# up to 128 rows in another order, within 1e-5 of the sum of |x| (128 *
+# 2^-24 = 7.6e-6 in the worst case). Each limit must refuse a planted fault:
+# one value moved by PLANTED of its sum of |x|.
+K9_RTOL = 1e-6
+K10_RTOL = 1e-5
+PLANTED = 1e-3
+GATE_CHECKS = 36
 
 
 # device kernel names of each port kernel (csrc/)
@@ -160,9 +184,14 @@ WRAPPERS = {"K1 preprocess_fwd": preprocess.preprocess_fwd,
             "K5 rasterize_bwd": rasterize.rasterize_bwd,
             "K6 segmented_cumsum": scan.segmented_cumsum,
             "K7 sort_pairs": sort.sort_pairs,
-            "K8 counting_sort": radix.counting_sort}
-STEP_KERNELS = tuple(k for k in WRAPPERS if k[:2] in ("K1", "K2", "K3", "K4", "K5", "K6"))
+            "K8 counting_sort": radix.counting_sort,
+            "K9a variant_a": micro_bench.variant_a,
+            "K9b variant_b": micro_bench.variant_b,
+            "K9v variant_vmem_resident": micro_bench.variant_vmem_resident,
+            "K10 stream_sums": exp_dma_stream.stream_sums}
+STEP_KERNELS = tuple(k for k in WRAPPERS if k.split()[0] in ("K1", "K2", "K3", "K4", "K5", "K6"))
 ROUTE_KERNELS = ("K7 sort_pairs", "K8 counting_sort")
+K9_KERNELS = ("K9a variant_a", "K9b variant_b", "K9v variant_vmem_resident")
 # the sort routes: (label, flags, patch budget (None: the bench's), kernel)
 ROUTES = (("K8 in binning and the reduce", {"EGS_RADIX_SORT": "1", "EGS_RADIX_REDUCE": "1"},
            None, "K8 counting_sort"),
@@ -992,19 +1021,157 @@ def phase_k8(calls, flush, clock_mhz, n_sm):
             "max_abs_err": 0.0, **sum_timings(parts)}, lines
 
 
+def sums_check(label, got, want, mag, rtol):
+    """``got`` against ``want`` within ``rtol`` of ``mag`` (the sum of |x|
+    behind each value), and a planted fault, the value with the largest mag
+    moved by PLANTED of it, which the same limit must refuse. Returns (max
+    abs error, line); raises when a value fails or the fault passes."""
+    err = (got - want).abs()
+    limit = rtol * mag
+    n_bad = int((err > limit).sum()) + int((~torch.isfinite(got)).sum())
+    j = int(torch.argmax(mag))
+    fault = got.flatten().clone()
+    fault[j] += PLANTED * mag.flatten()[j]
+    caught = float((fault[j] - want.flatten()[j]).abs()) > float(limit.flatten()[j])
+    worst = float(err.max())
+    line = (f"{label}: max_abs_err {worst:.3e}, beyond {rtol:g}*sum|x|: {n_bad}; a value moved "
+            f"by {PLANTED:g} of its sum|x| refused: {caught}")
+    require(n_bad == 0, line)
+    require(caught, f"a planted fault passes: {line}")
+    return worst, line
+
+
+def probe_launches(run):
+    """The launch counts of one probe's path: every count set to 0 just
+    before ``run()`` and read just after. Returns (run's result, counts)."""
+    reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in WRAPPERS.items() if w.launches}
+
+
+def phase_k9(device, flush, clock_mhz, n_sm):
+    """K9: the probe's path (micro_bench.run at the script's sizes, which
+    prints its A, B, V and D1-D5 times), then each kernel held against its
+    plain version on the script's inputs and timed with the L2 flushed."""
+    lines = ["K9 probe path (probes.micro_bench.run):"]
+    _, launches = probe_launches(lambda: micro_bench.run(device))
+    lines.append(f"K9 probe path launches: {launches}")
+    require(sorted(launches) == sorted(K9_KERNELS), f"K9 launches {launches}")
+    q, nt, k = micro_bench.Q_TOTAL, micro_bench.N_TILES, micro_bench.K
+    packed, tiles, _ = micro_bench.make_inputs(device)
+    per_tile = torch.bincount(tiles.long(), minlength=nt)
+    lines.append(f"K9 inputs: packed {tuple(packed.shape)}, {q} chunks over {nt} tiles, "
+                 f"{q / nt:.3f} chunks per tile, at most {int(per_tile.max())}, "
+                 f"{int((per_tile == 0).sum())} tiles with none")
+    a = micro_bench.variant_a(q, packed, tiles)
+    img, tau = micro_bench.variant_b(q, nt, packed, tiles)
+    v = micro_bench.variant_vmem_resident(q, nt, packed, tiles)
+    torch.cuda.synchronize()
+    img_p, tau_p = micro_bench.variant_b_plain(q, nt, packed, tiles)
+    v_p = micro_bench.variant_vmem_resident_plain(q, nt, packed, tiles)
+    require(torch.equal(a, torch.zeros_like(a)), "K9a did not return zeros")
+    require(torch.equal(tau, tau_p), "K9b tau is not all ones")
+    err_b, line_b = sums_check("K9b img", img, img_p, micro_bench.variant_b_plain(
+        q, nt, packed.abs(), tiles)[0], K9_RTOL)
+    err_v, line_v = sums_check("K9v", v, v_p, micro_bench.variant_vmem_resident_plain(
+        q, nt, packed.abs(), tiles), K9_RTOL)
+    lines += [f"K9a: [8, 128] zeros, exact; K9b tau all ones, exact; K9b img bit-equal to the "
+              f"plain version: {torch.equal(img, img_p)}", line_b, line_v]
+
+    chunks = packed[:3].reshape(3, q, k).transpose(0, 1).contiguous()
+    tl = tiles.long()
+    rows_t = packed[:3].T.contiguous()
+    lens = per_tile * k
+    read3 = 3 * q * k * 4
+    specs = (
+        ("K9a variant_a", lambda: micro_bench.variant_a(q, packed, tiles),
+         lambda: micro_bench.variant_a_plain(q, packed, tiles), None,
+         packed.numel() * 4 + a.numel() * 4, 0, 0.0, ":41"),
+        ("K9b variant_b", lambda: micro_bench.variant_b(q, nt, packed, tiles),
+         lambda: micro_bench.variant_b_plain(q, nt, packed, tiles),
+         lambda: torch.zeros((nt, 3, k), device=device).index_add_(0, tl, chunks),
+         read3 + q * 4 + (img.numel() + tau.numel()) * 4, 3 * q * k, err_b, ":61"),
+        ("K9v variant_vmem_resident", lambda: micro_bench.variant_vmem_resident(q, nt, packed, tiles),
+         lambda: micro_bench.variant_vmem_resident_plain(q, nt, packed, tiles),
+         lambda: torch.segment_reduce(rows_t, "sum", lengths=lens, unsafe=True),
+         read3 + q * 4 + v.numel() * 4, 3 * q * k, err_v, ":93"),
+    )
+    entries = []
+    for name, kern, plain, library, nbytes, ops, err, line in specs:
+        t = timings(kern, plain, clock_mhz, flush, library=library)
+        t.update(bound(nbytes, ops, 0, clock_mhz, n_sm))
+        entries.append({"name": name, "route": "cuda",
+                        "source": "easygaussiansplatting_tpu_torch/csrc/micro_bench.cu",
+                        "replaces": f"scripts/micro_bench.py{line}",
+                        "launches": launches.get(name, 0), "max_abs_err": err, **t})
+    ta = entries[0]
+    require(ta["ms"] >= ta["bound_ms"],
+            f"K9a took {ta['ms']:.4f} ms, below its bytes bound {ta['bound_ms']:.4f} ms: the "
+            f"loads that nothing reads were dropped")
+    for e in entries[1:]:
+        lines.append(f"{e['name']}: {1e3 * (e['ms'] - e['bound_ms']):.2f} us over its bytes "
+                     f"bound across {nt} tile blocks ({1e6 * (e['ms'] - e['bound_ms']) / nt:.1f} "
+                     f"ns a block)")
+    return entries, lines
+
+
+def phase_k10(device, flush, clock_mhz, n_sm):
+    """K10: the probe's path (exp_dma_stream.run at the script's sizes: its
+    numpy check and its per-chunk time), then the kernel held against its
+    plain version and timed with the L2 flushed; its bound counts the
+    distinct rows of x the summed ranges cover."""
+    lines = ["K10 probe path (probes.exp_dma_stream.run):"]
+    (err_np, _), launches = probe_launches(lambda: exp_dma_stream.run(device))
+    lines.append(f"K10 probe path launches: {launches}")
+    require(list(launches) == ["K10 stream_sums"], f"K10 launches {launches}")
+    require(err_np < exp_dma_stream.OK_TOL, f"K10 differs from numpy by {err_np}")
+    x, offs, rows = (torch.from_numpy(t).to(device) for t in exp_dma_stream.make_inputs())
+    m, q = x.shape[0], offs.shape[0]
+    got = exp_dma_stream.stream_sums(offs, rows, x)
+    torch.cuda.synchronize()
+    want = exp_dma_stream.stream_sums_plain(offs, rows, x)
+    err, line = sums_check("K10", got, want, exp_dma_stream.stream_sums_plain(offs, rows, x.abs()),
+                           K10_RTOL)
+    lines.append(line)
+    # the rows the summed ranges cover, each counted once
+    edges = torch.zeros(m + 1, dtype=torch.int32, device=device)
+    edges.index_add_(0, offs.long(), torch.ones_like(offs))
+    edges.index_add_(0, (offs + rows).long(), -torch.ones_like(offs))
+    covered = int((torch.cumsum(edges, 0)[:m] > 0).sum())
+    n_sum = int(rows.sum())
+    idx = torch.repeat_interleave(offs.long(), rows.long()) + (
+        torch.arange(n_sum, device=device) - torch.repeat_interleave(
+            torch.cumsum(rows.long(), 0) - rows.long(), rows.long()))
+    bag_off = torch.cumsum(rows.long(), 0) - rows.long()
+    t = timings(lambda: exp_dma_stream.stream_sums(offs, rows, x),
+                lambda: exp_dma_stream.stream_sums_plain(offs, rows, x), clock_mhz, flush,
+                library=lambda: torch.nn.functional.embedding_bag(idx, x, bag_off, mode="sum"))
+    t.update(bound(covered * 16 * 4 + q * 2 * 4 + got.numel() * 4, n_sum * 16, 0, clock_mhz,
+                   n_sm))
+    lines.append(f"K10: {q} chunks, {n_sum} rows summed, {covered} of {m} rows of x covered "
+                 f"({covered * 64 / 1e6:.2f} MB); {1e6 * t['ms'] / q:.1f} ns a chunk, bound "
+                 f"{1e6 * t['bound_ms'] / q:.1f} ns a chunk")
+    return [{"name": "K10 stream_sums", "route": "cuda",
+             "source": "easygaussiansplatting_tpu_torch/csrc/dma_stream.cu",
+             "replaces": "scripts/exp_dma_stream.py:25",
+             "launches": launches.get("K10 stream_sums", 0), "max_abs_err": err, **t}], lines
+
+
 def _generator_copy(gen):
     out = torch.Generator()
     out.set_state(gen.get_state())
     return out
 
 
-def phase_driver(device):
+def phase_driver(device, keep):
     """The epoch driver: ``train`` for DRIVER_EPOCHS epochs of the N_VIEWS
     views at capacity DRIVER_CAPACITY, densify every 2 epochs, the adaptive
     budget from the bench's patch budget (rung 589,824); a checkpoint and an
     in-memory copy of the state at epoch 2, and from each a resumed
     ``train(start_epoch=2)``, which must agree bit for bit. Yields its
-    lines as it goes, so a failed check follows what led to it."""
+    lines as it goes, so a failed check follows what led to it; leaves the
+    final pool, the cameras, the ground truth and the config in ``keep``."""
     pool, cams, gts, scene_size, cfg = train_setup(device, capacity=DRIVER_CAPACITY)
     cfg = dataclasses.replace(cfg, epochs=DRIVER_EPOCHS, densify_every_epochs=2)
     ck = ROOT / "build" / "smoke_driver.npz"
@@ -1029,6 +1196,7 @@ def phase_driver(device):
                        eval_every=100, epoch_cb=at_epoch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    keep.update(pool=copy.deepcopy(pool), cams=cams, gts=gts, cfg=cfg)
     launches = {k: w.launches for k, w in WRAPPERS.items()}
     yield f"driver: {DRIVER_EPOCHS} epochs x {N_VIEWS} views in {wall:.3f} s; launches {launches}"
     yield from (f"  log: {ln}" for ln in logs)
@@ -1141,6 +1309,83 @@ def phase_bench_cli():
     return [f"bench CLI ({time.perf_counter() - t0:.1f} s): {lines[0]}"]
 
 
+FLAGS_OUT = ROOT / "build" / "smoke_train_flags"
+
+
+def run_module(module, *args):
+    """Runs ``python -m easygaussiansplatting_tpu_torch.<module> args``;
+    returns its CompletedProcess and its seconds."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", f"easygaussiansplatting_tpu_torch.{module}",
+                          *args], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    return res, time.perf_counter() - t0
+
+
+def phase_train_cli_flags():
+    """The train CLI for one epoch with --preview, --profile and
+    --debug-nans: the preview PNG and the trace exist."""
+    for f in (FLAGS_OUT / "preview0001.png", FLAGS_OUT / "profile" / "trace.json"):
+        if f.exists():
+            f.unlink()
+    res, seconds = run_module("train", "--synthetic", "--epochs", "1", "--out", str(FLAGS_OUT),
+                              "--preview", "--profile", str(FLAGS_OUT / "profile"),
+                              "--debug-nans")
+    require(res.returncode == 0, f"train CLI with flags failed:\n{res.stdout}\n{res.stderr}")
+    png = FLAGS_OUT / "preview0001.png"
+    require(png.exists() and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n",
+            "--preview wrote no PNG")
+    trace = FLAGS_OUT / "profile" / "trace.json"
+    require(trace.exists() and trace.stat().st_size > 0, "--profile wrote no trace")
+    return [f"train CLI --preview --profile --debug-nans ({seconds:.1f} s): "
+            f"{png.name} {png.stat().st_size} B, {trace.name} {trace.stat().st_size} B; "
+            + res.stdout.strip().splitlines()[-1]]
+
+
+def phase_eval_cli():
+    """The eval CLI on the train CLI phase's final.npy: a finite mean PSNR."""
+    res, seconds = run_module("eval", "--gs", str(ROOT / "build" / "smoke_train" / "final.npy"),
+                              "--synthetic")
+    require(res.returncode == 0, f"eval CLI failed:\n{res.stdout}\n{res.stderr}")
+    last = res.stdout.strip().splitlines()[-1]
+    found = re.match(r"mean over 8 views: psnr (\S+)", last)
+    require(found is not None and np.isfinite(float(found.group(1))),
+            f"eval CLI printed no finite mean PSNR: {last}")
+    return [f"eval CLI on final.npy ({seconds:.1f} s): {last}"]
+
+
+def phase_gate():
+    """The gradient gate: exit 0, GATE_CHECKS [OK], no [NG]."""
+    res, seconds = run_module("verify_gradients")
+    n_ok, n_ng = res.stdout.count("[OK]"), res.stdout.count("[NG]")
+    lines = [f"gradient gate ({seconds:.1f} s): exit {res.returncode}, {n_ok} [OK], {n_ng} [NG]"]
+    lines += ["  " + ln for ln in res.stdout.splitlines() if "(cuda" in ln or "multi-block" in ln]
+    require(res.returncode == 0 and n_ok == GATE_CHECKS and n_ng == 0,
+            "the gradient gate failed:\n" + res.stdout + res.stderr)
+    return lines
+
+
+def phase_eval(device, keep):
+    """eval's per-view function on the driver's final pool against the
+    N_VIEWS ground-truth views at full width; view 0's PSNR must be finite
+    and equal to the port's psnr of the same render."""
+    pool, cams, gts, cfg = keep["pool"], keep["cams"], keep["gts"], keep["cfg"]
+    *params, alive = (t.detach() for t in pool.activated())
+    gaussians = [t[alive] for t in params]
+    lines = [f"eval of the driver's final pool ({int(alive.sum())} gaussians) on {len(cams)} "
+             f"views at {WIDTH}x{HEIGHT}:"]
+    t0 = time.perf_counter()
+    rows = evaluate_views(gaussians, cams, gts, sh_degree=cfg.sh_degree, device=device,
+                          log_fn=lambda ln: lines.append("  " + ln))
+    lines.append(f"  ({time.perf_counter() - t0:.2f} s) mean psnr "
+                 f"{float(np.mean([r[0] for r in rows])):.4f}")
+    img, _ = render(*gaussians, cams[0], sh_degree=cfg.sh_degree, max_patches=2**20,
+                    need_grads=False, device=device)
+    want = float(psnr(torch.clamp(img, 0, 1), torch.clamp(gts[0], 0, 1)))
+    lines.append(f"  view 0 psnr by eval {rows[0][0]!r}, by psnr of the same render {want!r}")
+    require(np.isfinite(rows[0][0]) and rows[0][0] == want, "eval's PSNR differs from psnr's")
+    return lines
+
+
 def print_timing(entry):
     lib = "none" if entry["library_ms"] is None else f"{entry['library_ms']:.4f} ms"
     print(f"{entry['name']}: {entry['ms']:.4f} ms by CUDA events ({entry['call_ms']:.4f} ms "
@@ -1212,12 +1457,25 @@ def main():
             print(line, flush=True)
         print_timing(entry)
         kernels.append(entry)
-    kernels.sort(key=lambda e: e["name"])
     del pool, cams, gts, seen, calls
 
-    for line in phase_driver(device):
+    for phase in (phase_k9, phase_k10):
+        entries, lines = phase(device, flush, clock_mhz, n_sm)
+        for line in lines:
+            print(line, flush=True)
+        for entry in entries:
+            print_timing(entry)
+        kernels += entries
+    kernels.sort(key=lambda e: (int(re.match(r"K(\d+)", e["name"]).group(1)), e["name"]))
+
+    keep = {}
+    for line in phase_driver(device, keep):
         print(line, flush=True)
-    for phase in (phase_cli, phase_train_cli, phase_bench_cli):
+    for line in phase_eval(device, keep):
+        print(line, flush=True)
+    del keep
+    for phase in (phase_cli, phase_train_cli, phase_bench_cli, phase_train_cli_flags,
+                  phase_eval_cli, phase_gate):
         for line in phase():
             print(line, flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)

@@ -9,14 +9,16 @@ first use and bound through ``ctypes`` (``ops/kernels/_build.py``). Each
 kernel keeps a plain PyTorch version beside it: a wrapper takes the plain
 version for CPU tensors and launches the kernel for CUDA tensors.
 
-Ported so far (the forward render path and the single-camera training
-step):
-  utils/{sh,activations,quaternion,schedule}.py, models/camera.py,
-  models/gaussians.py, models/convert.py, data/fixtures.py,
-  data/synthetic.py, data/gau_io.py (load side), ops/stages.py,
-  ops/binning.py, ops/blend.py, ops/rasterize_tiled.py, ops/rasterize.py,
-  ops/loss.py, ops/kernels/{preprocess,scan,rasterize}.py,
-  train/{config,optimizer,density,loop}.py, render.py (CLI).
+Ported so far (the forward render, the training step, the epoch driver,
+the gradient gate, eval, and every Pallas kernel of the repository):
+  utils/{sh,activations,quaternion,schedule,image,envflag,device}.py,
+  models/{camera,gaussians,convert}.py, data/{fixtures,synthetic,gau_io}.py,
+  ops/{stages,binning,blend,rasterize_tiled,rasterize,loss}.py,
+  ops/kernels/{preprocess,scan,rasterize,sort,radix}.py (K1-K8),
+  train/{config,optimizer,density,loop,checkpoint}.py, golden/ (a copy of
+  the float64 oracle), probes/{micro_bench,exp_dma_stream}.py (K9, K10),
+  and the CLIs render.py, train/__main__.py, bench.py, eval.py and
+  verify_gradients.py.
 
 This package never imports jax nor easygaussiansplatting_tpu; only the tests
 import both.

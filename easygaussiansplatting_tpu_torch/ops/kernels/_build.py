@@ -51,6 +51,10 @@ SIGNATURES = {
     # the payload columns go in as two host arrays of device pointers
     "egs_sort": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _L, _L, _L, _L, _I, _P],
     "egs_counting_sort": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _I, _P],
+    # the K9 and K10 probes (probes/)
+    "egs_stream_chunks": [_P, _L, _I, _P, _I, _P],
+    "egs_tile_sums": [_P, _L, _P, _I, _I, _P, _P, _P, _I, _P],
+    "egs_stream_sums": [_P, _L, _P, _P, _I, _P, _P],
 }
 
 

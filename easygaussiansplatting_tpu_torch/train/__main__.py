@@ -8,9 +8,14 @@ Port of the repository's root train.py, single device:
 
 The synthetic scene is the JAX CLI's: 512 gaussians, 8 views at 128x96, the
 ground truth rendered from it, and the training started from its positions
-with N(0, 0.03) noise and its colours halved (or from ``--gs``). Writes
-``epochNNNN.npy`` snapshots and ``checkpoint.npz`` every ``--save-every``
-epochs and at the end, then ``final.npy`` and ``final.ply``, into ``--out``.
+with N(0, 0.03) noise and its colours halved. Writes ``epochNNNN.npy``
+snapshots and ``checkpoint.npz`` every ``--save-every`` epochs and at the
+end, then ``final.npy`` and ``final.ply``, into ``--out``.
+
+``--preview`` adds a PNG of camera 0 at each save, ``--profile DIR`` writes a
+``torch.profiler`` trace of the first epoch (CUDA activity on the card) to
+``DIR/trace.json``, and ``--debug-nans`` stops at the first step whose loss
+or gradient holds a non-finite value, naming it.
 """
 
 import argparse
@@ -18,22 +23,25 @@ import time
 from pathlib import Path
 
 import numpy as np
+import torch
 
-from easygaussiansplatting_tpu_torch.data.gau_io import load_gs, recarray_to_arrays, save_pool
+from easygaussiansplatting_tpu_torch.data.gau_io import save_pool
 from easygaussiansplatting_tpu_torch.data.synthetic import make_synthetic_scene, render_gt_images
 from easygaussiansplatting_tpu_torch.models.gaussians import pool_from_arrays
 from easygaussiansplatting_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from easygaussiansplatting_tpu_torch.train.config import TrainConfig
-from easygaussiansplatting_tpu_torch.train.loop import train
+from easygaussiansplatting_tpu_torch.train.loop import render_pool_image, train
 from easygaussiansplatting_tpu_torch.utils.device import resolve_device
+from easygaussiansplatting_tpu_torch.utils.image import save_png, to_uint8
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--synthetic", action="store_true", help="train on the synthetic scene")
-    ap.add_argument("--gs", help="initial gaussians (.ply/.npy) in place of the synthetic "
-                                 "scene's perturbed copy")
+    ap.add_argument("--gs", help="initial gaussians (.ply/.npy) overriding a COLMAP scene's "
+                                 "SfM points; read with --path only, as in train.py, so "
+                                 "--synthetic ignores it")
     ap.add_argument("--epochs", type=int, default=100)
     ap.add_argument("--backend", default="auto", choices=["auto", "cuda", "tiled"])
     ap.add_argument("--capacity", type=int, default=None, help="gaussian pool capacity")
@@ -46,9 +54,18 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--resume", help="checkpoint .npz to resume from")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--preview", action="store_true",
+                    help="save a render of camera 0 at each save interval")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="write a torch.profiler trace of the first epoch to DIR/trace.json")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="check every step's loss and gradients, raise on a non-finite value")
     args = ap.parse_args(argv)
     if not args.synthetic:
         ap.error("need --synthetic (COLMAP scenes are not ported yet)")
+    if args.gs:
+        print(f"warning: --gs {args.gs} is ignored: it replaces a COLMAP scene's SfM points, "
+              "and --synthetic starts from the scene's perturbed copy", flush=True)
     dev = resolve_device(args.device)
 
     scene = make_synthetic_scene(seed=args.seed, n_gaussians=512, n_cams=8, width=128,
@@ -56,14 +73,11 @@ def main(argv=None):
     cameras = scene["cameras"]
     scene_size = scene["scene_size"]
     images = render_gt_images(scene, device=dev)
-    if args.gs:
-        gs = recarray_to_arrays(load_gs(args.gs))
-    else:
-        # perturbed init: recover the ground truth
-        gs = {k: scene[k] for k in ("pws", "rots", "scales", "alphas", "shs")}
-        rng = np.random.default_rng(args.seed)
-        gs["pws"] = gs["pws"] + rng.normal(scale=0.03, size=gs["pws"].shape)
-        gs["shs"] = gs["shs"] * 0.5
+    # perturbed init: recover the ground truth
+    gs = {k: scene[k] for k in ("pws", "rots", "scales", "alphas", "shs")}
+    rng = np.random.default_rng(args.seed)
+    gs["pws"] = gs["pws"] + rng.normal(scale=0.03, size=gs["pws"].shape)
+    gs["shs"] = gs["shs"] * 0.5
 
     config = TrainConfig(
         epochs=args.epochs, backend=args.backend, max_patches=args.max_patches,
@@ -88,15 +102,37 @@ def main(argv=None):
     def log_fn(msg):
         print(f"{time.strftime('%H:%M:%S')} {msg}", flush=True)
 
+    profiler = []
+    if args.profile:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler.append(torch.profiler.profile(activities=acts))
+        profiler[0].start()
+
+    def stop_profiler():
+        if profiler:
+            prof = profiler.pop()
+            prof.stop()
+            trace = Path(args.profile) / "trace.json"
+            trace.parent.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(trace))
+            log_fn(f"wrote profiler trace to {trace}")
+
     def save_cb(epoch, pool, adam_state, stats, generator):
+        stop_profiler()  # after the first epoch this run trains
         if epoch % config.save_every_epochs == 0 or epoch == config.epochs:
             save_pool(out / f"epoch{epoch:04d}.npy", pool)
             save_checkpoint(out / "checkpoint.npz", pool, adam_state, stats, epoch=epoch,
                             generator=generator)
+            if args.preview:
+                img, _ = render_pool_image(pool, cameras[0], config, need_grads=False)
+                save_png(out / f"preview{epoch:04d}.png", to_uint8(img.cpu().numpy()))
 
     pool, history = train(pool, cameras, images, config, scene_size, seed=args.seed,
                           log_fn=log_fn, eval_every=args.eval_every, epoch_cb=save_cb,
-                          **resume)
+                          debug_nans=args.debug_nans, **resume)
+    stop_profiler()  # no epoch ran
     save_pool(out / "final.npy", pool)
     save_pool(out / "final.ply", pool)  # official-3DGS layout for external viewers
     if history["loss"]:

@@ -34,7 +34,7 @@ from easygaussiansplatting_tpu_torch.train.density import (
     update_density_stats,
 )
 from easygaussiansplatting_tpu_torch.train.optimizer import adam_init, adam_update, make_lr_fns
-from easygaussiansplatting_tpu_torch.utils.device import resolve_device
+from easygaussiansplatting_tpu_torch.utils.device import resolve_device, synchronize
 from easygaussiansplatting_tpu_torch.utils.image import psnr
 
 
@@ -64,8 +64,18 @@ def loss_and_grads(pool, cam, gt_image, config):
     return loss.detach(), dict(zip([*params, "us_offset"], grads)), aux
 
 
+def check_finite(loss, grads):
+    """Raise ``FloatingPointError`` naming the loss or the first gradient
+    group that holds a non-finite value: the counterpart of JAX's
+    ``jax_debug_nans`` for one step. Reads the values on the host."""
+    for name, value in (("loss", loss), *grads.items()):
+        if not bool(torch.isfinite(value).all()):
+            what = "the loss" if name == "loss" else f"the gradient of {name}"
+            raise FloatingPointError(f"non-finite values in {what}")
+
+
 def make_train_step(config: TrainConfig, scene_size: float, max_steps: int,
-                    max_patches=None, device="cuda"):
+                    max_patches=None, device="cuda", debug_nans=False):
     """Returns ``train_step(pool, adam_state, stats, cam, gt_image) -> (loss,
     binfo)``. The step renders ``pool`` from ``cam``, takes the loss against
     ``gt_image`` [3,H,W], and updates the pool's parameters, ``adam_state``
@@ -76,6 +86,8 @@ def make_train_step(config: TrainConfig, scene_size: float, max_steps: int,
     ``device`` is where the pool must lie; "cuda" (the default) raises
     without a card. ``max_patches`` overrides the config's patch budget and
     scales an explicit row budget with it, as :class:`PatchBudget` asks.
+    ``debug_nans`` checks the loss and every gradient group with
+    :func:`check_finite` (a host sync per step).
     """
     dev = resolve_device(device)
     lr_fns = make_lr_fns(config, scene_size, max_steps)
@@ -92,6 +104,8 @@ def make_train_step(config: TrainConfig, scene_size: float, max_steps: int,
         if pool.pws.device.type != dev.type:
             raise ValueError(f"the pool is on {pool.pws.device}, the step on {dev}")
         loss, grads, aux = loss_and_grads(pool, cam, gt_image, config)
+        if debug_nans:
+            check_finite(loss, grads)
         g_us = grads.pop("us_offset")
         adam_update(grads, adam_state, pool.params(), lr_fns,
                     b1=config.adam_b1, b2=config.adam_b2, eps=config.adam_eps)
@@ -152,14 +166,9 @@ class PatchBudget:
         return False
 
 
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def train(pool, cameras, gt_images, config: TrainConfig, scene_size, seed=0, log_fn=print,
           eval_every=10, epoch_cb=None, adam_state=None, stats=None, start_epoch=0,
-          generator=None):
+          generator=None, debug_nans=False):
     """Full training on the pool's device, updating ``pool`` (and
     ``adam_state`` and ``stats`` when given) in place. cameras: list of
     Camera (same W, H); gt_images: list of [3,H,W] images (tensors or
@@ -168,7 +177,8 @@ def train(pool, cameras, gt_images, config: TrainConfig, scene_size, seed=0, log
     ``torch.Generator`` of the split noise, seeded with ``seed`` when not
     given. Each epoch's camera order comes from
     ``np.random.default_rng(seed + start_epoch)``, as in the JAX package, so
-    a resumed run does not replay an uninterrupted run's order. Returns
+    a resumed run does not replay an uninterrupted run's order.
+    ``debug_nans`` goes to every step (:func:`make_train_step`). Returns
     (pool, history)."""
     dev = pool.pws.device
     rng = np.random.default_rng(seed + start_epoch)
@@ -180,7 +190,7 @@ def train(pool, cameras, gt_images, config: TrainConfig, scene_size, seed=0, log
 
     def step_for(max_patches):
         return make_train_step(config, scene_size, max_steps, max_patches=max_patches,
-                               device=dev)
+                               device=dev, debug_nans=debug_nans)
 
     train_step = step_for(budget.value)
     if adam_state is None:
@@ -204,7 +214,7 @@ def train(pool, cameras, gt_images, config: TrainConfig, scene_size, seed=0, log
         t_dev0 = time.time()
         loss0, binfo0 = train_step(pool, adam_state, stats, cameras[order[0]],
                                    gt_images[order[0]])
-        _sync(dev)
+        synchronize(dev)
         t_step_device = time.time() - t_dev0
         losses.append(loss0)
         patch_peak.append(binfo0["obs"])

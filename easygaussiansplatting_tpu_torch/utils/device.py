@@ -20,3 +20,10 @@ def resolve_device(device="cuda"):
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def synchronize(dev):
+    """Wait for ``dev``'s queued work when it is a CUDA device; the CPU runs
+    eagerly, so there is nothing to wait for."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -20,6 +20,7 @@ from easygaussiansplatting_tpu_torch.models.gaussians import pool_from_arrays
 from easygaussiansplatting_tpu_torch.ops.binning import bin_gaussians
 from easygaussiansplatting_tpu_torch.ops.kernels import preprocess, radix, rasterize, scan, sort
 from easygaussiansplatting_tpu_torch.ops.rasterize import raster_from_aux, render
+from easygaussiansplatting_tpu_torch.probes import exp_dma_stream, micro_bench
 from easygaussiansplatting_tpu_torch.train.config import TrainConfig
 from easygaussiansplatting_tpu_torch.train.loop import loss_and_grads
 
@@ -303,3 +304,54 @@ def test_lex_sort_route_matches_default_binning(cuda, monkeypatch):
     assert sort.sort_pairs.launches == before + 1
     for k in ("patch_gsid", "patch_tile", "tile_start", "tile_cnt", "total", "gsid_counts"):
         assert torch.equal(got[k], want[k]), k
+
+
+def _k9_inputs(q, n_tiles, seed):
+    rng = np.random.default_rng(seed)
+    packed = torch.from_numpy(rng.normal(size=(16, q * 256)).astype(np.float32))
+    tiles = np.sort(rng.integers(0, n_tiles, q)).astype(np.int32)
+    if n_tiles > 2:
+        tiles[tiles == n_tiles // 2] = n_tiles // 2 + 1  # a tile that no chunk visits
+    return packed, torch.from_numpy(np.sort(tiles))
+
+
+@pytest.mark.parametrize("q,n_tiles", [(0, 3), (1, 1), (40, 9), (6266, 2170)])
+def test_micro_bench_kernels_match_plain(cuda, q, n_tiles):
+    """K9a exact zeros; K9b the same float32 adds in chunk order as its plain
+    version (bit-equal), tau exact; K9v sums the pixels in another order,
+    within 1e-6 of each tile's sum of |x| (the fp32 bound ~log2(256) * 2^-24
+    of it). With no chunk, K9a launches nothing and B and V give zeros."""
+    packed, tiles = _k9_inputs(q, n_tiles, q)
+    pc, tc = packed.to(cuda), tiles.to(cuda)
+    before = (micro_bench.variant_a.launches, micro_bench.variant_b.launches,
+              micro_bench.variant_vmem_resident.launches)
+    a = micro_bench.variant_a(q, pc, tc)
+    img, tau = micro_bench.variant_b(q, n_tiles, pc, tc)
+    v = micro_bench.variant_vmem_resident(q, n_tiles, pc, tc)
+    assert (micro_bench.variant_a.launches, micro_bench.variant_b.launches,
+            micro_bench.variant_vmem_resident.launches) == (before[0] + (q > 0), before[1] + 1,
+                                                            before[2] + 1)
+    assert torch.equal(a.cpu(), torch.zeros(8, 128))
+    img_p, tau_p = micro_bench.variant_b_plain(q, n_tiles, packed, tiles)
+    assert torch.equal(img.cpu(), img_p) and torch.equal(tau.cpu(), tau_p)
+    mag = micro_bench.variant_vmem_resident_plain(q, n_tiles, packed.abs(), tiles)
+    v_p = micro_bench.variant_vmem_resident_plain(q, n_tiles, packed, tiles)
+    assert bool(((v.cpu() - v_p).abs() <= 1e-6 * mag).all())
+
+
+@pytest.mark.parametrize("m,q", [(256, 0), (256, 3), (4096, 24), (1 << 18, 4096)])
+def test_stream_sums_kernel_matches_plain(cuda, m, q):
+    """float32 column sums of up to 128 rows in another order: within 1e-5
+    of the sums of |x|. With no chunk, nothing is launched."""
+    x, offs, rows = exp_dma_stream.make_inputs(m=m, q_total=q)
+    if q >= 2:
+        offs[:2] = (0, m - 128)  # both ends of x
+        rows[:2] = (128, 1)
+    x, offs, rows = (torch.from_numpy(a) for a in (x, offs, rows))
+    before = exp_dma_stream.stream_sums.launches
+    got = exp_dma_stream.stream_sums(offs.to(cuda), rows.to(cuda), x.to(cuda))
+    assert exp_dma_stream.stream_sums.launches == before + (q > 0)
+    want = exp_dma_stream.stream_sums_plain(offs, rows, x)
+    mag = exp_dma_stream.stream_sums_plain(offs, rows, x.abs())
+    assert got.shape == (q, 1, 16)
+    assert bool(((got.cpu() - want).abs() <= 1e-5 * mag).all())
