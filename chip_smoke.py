@@ -151,8 +151,8 @@ REL_FLOOR = 1e-12
 # of the segment's running sum of |x|
 K6_RTOL = 1e-5
 # A K7 route against the default route: the gradient sums within a gaussian
-# may run in another order, each group within ROUTE_REL * max|g|. (K7 breaks
-# ties by position, so it is stable and the sums run in the same order.)
+# may run in another order, each group within ROUTE_REL * max|g|. (K7 is a
+# stable sort, so the sums run in the same order.)
 ROUTE_REL = 1e-4
 # K9b and K9v against their plain versions: float32 sums of each tile's
 # chunks (K9b: the same adds in the same order; K9v: the 256 pixels in
@@ -956,14 +956,72 @@ def sum_timings(parts):
             for k, v in parts[0].items()}
 
 
+def device_kernels(fn):
+    """The device kernels one call of fn() launches (profiled after a warm
+    call): (their count, "N: name xk t us, ..." in launch order with their
+    device time in that call), or (None, "not traced") where the profiler
+    records no device activity. A small flush kernel, which the count leaves
+    out, runs first in the profile, so that the call's first kernel is not
+    the profile's first activity."""
+    fn()
+    torch.cuda.synchronize()
+    marker = torch.zeros(256, dtype=torch.int32, device="cuda")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        marker.bitwise_not_()
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    events = sorted(_kernel_events(prof), key=lambda e: e.time_range.start)
+    if not events:
+        return None, "not traced"
+    by_name = {}
+    for e in events:
+        n, us = by_name.get(short_name(e.name), (0, 0.0))
+        by_name[short_name(e.name)] = (n + 1, us + e.time_range.elapsed_us())
+    return len(events), f"{len(events)}: " + ", ".join(
+        f"{name} x{n} {us:.1f} us" for name, (n, us) in by_name.items())
+
+
+KERNEL_COUNT_TRIES = 3
+
+
+def require_kernel_count(label, fn, expected):
+    """The device kernels of one call of fn(), which must number ``expected``
+    (the design's launches). A launch that fails raises in fn(), so a call
+    cannot run fewer kernels than it launched without failing; a profile that
+    holds fewer has lost an activity record, and is taken again, up to
+    KERNEL_COUNT_TRIES profiles. More kernels than the design's, or fewer in
+    every profile, fail. Returns the text for the phase's line."""
+    short = []
+    for _ in range(KERNEL_COUNT_TRIES):
+        counted, kernels = device_kernels(fn)
+        require(counted is not None, f"{label}: the profiler recorded no device kernel")
+        require(counted <= expected, f"{label}: {kernels} device kernels in one call, "
+                f"the design launches {expected}")
+        if counted == expected:
+            return kernels + "".join(f" (an earlier profile traced {k})" for k in short)
+        short.append(kernels)
+    require(False, f"{label}: the design launches {expected} device kernels a call; "
+            f"{KERNEL_COUNT_TRIES} profiles traced " + "; ".join(short))
+
+
+def max_abs_diff(got, want):
+    """The largest elementwise |got - want| over lists of arrays (int32 words
+    and float32 values, compared in float64)."""
+    return max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+               for a, b in zip(got, want))
+
+
 def phase_k7(calls, flush, clock_mhz, n_sm):
     """K7 against its plain version on every call its routes made: keys
     equal, (key, payload) rows equal as multisets. The entry's times are
     those of the calls of one step on the route K7 in the gsid_counts
     inversion and the reduce; the other routes' calls are timed in lines.
-    Its max_abs_err is 0: every call's sorted pairs must equal the plain
-    version's exactly."""
-    lines, entry_parts = [], []
+    Every call's sorted arrays must equal the stable plain version's bit for
+    bit, and a repeat call's too; the entry's max_abs_err is the largest
+    elementwise difference from the plain version over every call."""
+    lines, entry_parts, worst = [], [], 0.0
     for label, args, kw, out in calls:
         keys, vals = args[0], args[1:]
         n_keys = kw.get("n_keys", 1)
@@ -974,37 +1032,50 @@ def phase_k7(calls, flush, clock_mhz, n_sm):
                          zip(sorted_pairs(out), sorted_pairs(want)))
         exact = all(torch.equal(_words(a), _words(b)) for a, b in zip(out, want))
         repeat = all(torch.equal(_words(a), _words(b)) for a, b in zip(out, again))
-        require(same_keys and same_pairs and repeat,
-                f"K7 on {label} differs from its plain version")
+        require(same_keys and same_pairs and exact and repeat,
+                f"K7 on {label} differs from its stable plain version")
+        worst = max(worst, max_abs_diff(out, want))
         m = keys.numel()
+        # a CTA sort, one merge pass per level, a gather of the payloads
+        kernels = require_kernel_count(
+            f"K7 on {label}", lambda: sort.sort_pairs(*args, **kw),
+            sort.kernel_plan(m, n_keys)[0] + 1 + (len(vals) > n_keys - 1))
         t = timings(lambda: sort.sort_pairs(*args, **kw),
                     lambda: sort.sort_pairs_plain(*args, **kw), clock_mhz, flush,
                     plain_iters=20, library=lambda: library_sort(keys, vals, n_keys))
         t.update(bound(m * 4 * 2 * (1 + len(vals)), 0, 0, clock_mhz, n_sm))
         lines.append(f"K7 on {label}, {m} keys x {n_keys} word(s) + {len(vals) + 1 - n_keys} "
-                     f"payload(s): keys equal, pairs equal as multisets, equal to the stable "
-                     f"plain version: {exact}; {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
-                     f"library {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ms)")
+                     f"payload(s): equal to the stable plain version, and on a repeat call; "
+                     f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+                     f"library {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ms); device "
+                     f"kernels per call {kernels}")
         if label == ROUTES[1][0]:
             entry_parts.append(t)
     require(len(entry_parts) == 2, "the inversion-and-reduce route made two K7 calls")
     return {"name": "K7 sort_pairs", "route": "cuda",
             "source": "easygaussiansplatting_tpu_torch/csrc/sort.cu",
             "replaces": "easygaussiansplatting_tpu/ops/pallas/sort.py:90",
-            "max_abs_err": 0.0, **sum_timings(entry_parts)}, lines
+            "max_abs_err": worst, **sum_timings(entry_parts)}, lines
 
 
 def phase_k8(calls, flush, clock_mhz, n_sm):
     """K8 against its plain version on binning's and the reduce's calls:
-    equal bit for bit. The entry's times are the two calls' of one step."""
-    lines, parts = [], []
+    equal bit for bit, and on a repeat call. The entry's times are the two
+    calls' of one step; its max_abs_err is the largest elementwise
+    difference from the plain version over both."""
+    lines, parts, worst = [], [], 0.0
     for label, args, kw, out in calls:
         want = radix.counting_sort_plain(*args, **kw)
         again = radix.counting_sort(*args, **kw)
         exact = all(torch.equal(a, b) for a, b in zip(out, want))
         repeat = all(torch.equal(a, b) for a, b in zip(again, want))
         require(exact and repeat, f"K8 on {label} differs from its plain version")
+        worst = max(worst, max_abs_diff(out, want))
         m = args[0].numel()
+        # an upfront histogram, one scatter per pass, a gather of the payloads
+        kernels = require_kernel_count(
+            f"K8 on {label}", lambda: radix.counting_sort(*args, **kw),
+            radix.kernel_plan(m, kw["key_bound"])[0] + 1 + (len(args) > 1))
         t = timings(lambda: radix.counting_sort(*args, **kw),
                     lambda: radix.counting_sort_plain(*args, **kw), clock_mhz, flush,
                     plain_iters=20, library=lambda: library_sort(args[0], args[1:], 1))
@@ -1012,13 +1083,13 @@ def phase_k8(calls, flush, clock_mhz, n_sm):
         lines.append(f"K8 on {label}, {m} keys below {kw['key_bound']} + {len(args) - 1} "
                      f"payload(s): equal to the plain version; {t['ms']:.4f} ms (plain "
                      f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
-                     f"{t['bound_ms']:.4f} ms)")
+                     f"{t['bound_ms']:.4f} ms); device kernels per call {kernels}")
         parts.append(t)
     require(len(parts) == 2, "the K8 route made two K8 calls")
     return {"name": "K8 counting_sort", "route": "cuda",
             "source": "easygaussiansplatting_tpu_torch/csrc/radix.cu",
             "replaces": "easygaussiansplatting_tpu/ops/pallas/radix.py:100",
-            "max_abs_err": 0.0, **sum_timings(parts)}, lines
+            "max_abs_err": worst, **sum_timings(parts)}, lines
 
 
 def sums_check(label, got, want, mag, rtol):

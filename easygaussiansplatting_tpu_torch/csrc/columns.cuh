@@ -28,14 +28,14 @@ inline Columns make_columns(const void* const* in, void* const* out, int n) {
 }
 
 // out[c][t] = in[c][src[t]] for t < m: 32-bit words, so int32 and float32
-// columns move as bits. A source index past the input (a padding entry of
-// K7) carries a zero payload.
+// columns move as bits. src is a permutation of [0, m): a sort's final
+// source indices.
 __global__ void __launch_bounds__(GATHER_THREADS)
 gather_columns(const int* __restrict__ src, Columns cols, int n_cols, long long m) {
   const long long t = (long long)blockIdx.x * GATHER_THREADS + threadIdx.x;
   if (t >= m) return;
   const long long s = src[t];
-  for (int c = 0; c < n_cols; ++c) cols.out[c][t] = s < m ? cols.in[c][s] : 0;
+  for (int c = 0; c < n_cols; ++c) cols.out[c][t] = cols.in[c][s];
 }
 
 inline unsigned gather_blocks(long long m) {

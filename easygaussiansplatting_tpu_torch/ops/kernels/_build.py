@@ -38,6 +38,7 @@ EXTRA_FLAGS = {"preprocess.cu": ["-fmad=false"]}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_PL = ctypes.POINTER(ctypes.c_longlong)
 
 # C entry point -> argument types (every entry returns cudaError_t as int)
 SIGNATURES = {
@@ -49,8 +50,12 @@ SIGNATURES = {
     "egs_rasterize_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "egs_rasterize_bwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     # the payload columns go in as two host arrays of device pointers
-    "egs_sort": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _L, _L, _L, _L, _I, _P],
-    "egs_counting_sort": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _L, _I, _I, _P],
+    # and one uninitialised scratch buffer with its length in int32 words
+    "egs_sort": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _L, _L, _L, _P],
+    "egs_counting_sort": [_P, _P, _P, _P, _I, _P, _L, _L, _I, _P],
+    # their plans: launches and scratch words of a call, written to two int64s
+    "egs_sort_plan": [_L, _L, _I, _PL, _PL],
+    "egs_counting_sort_plan": [_L, _I, _PL, _PL],
     # the K9 and K10 probes (probes/)
     "egs_stream_chunks": [_P, _L, _I, _P, _I, _P],
     "egs_tile_sums": [_P, _L, _P, _I, _I, _P, _P, _P, _I, _P],

@@ -161,8 +161,7 @@ def sort_reduce_grads(rows, patch_gsid, gsid_counts, use_kernels=True):
     m = patch_gsid.shape[0]
     live = patch_gsid >= 0
     # dead and padding patches (gsid -1) key to INT32_MAX and sink to the
-    # end. That is also K7's pad key; its ties put the pads after them, and
-    # only live segments are read below in any case.
+    # end; only live segments are read below.
     key = torch.where(live, patch_gsid, INT32_MAX)
     pairs = sort.sort_pairs if use_kernels else sort.sort_pairs_plain
     if env_flag("EGS_RADIX_REDUCE"):

@@ -212,53 +212,119 @@ def test_kernel_gradients_are_bit_equal_across_runs(cuda):
         assert torch.equal(g1[k], g2[k]), k
 
 
-def _sort_inputs(m, seed, n_keys):
-    """Keys with duplicates and a tail keyed INT32_MAX (the reduce's dead
-    patches, which tie with K7's pads), an int and a float payload."""
+def _sort_inputs(m, seed, n_keys, kind="mixed"):
+    """Keys and an int and a float payload. ``mixed``: duplicates and a tail
+    keyed INT32_MAX (the reduce's dead patches); ``extremes``: key words at
+    and next to INT32_MIN, 0 and INT32_MAX; ``equal``: every key word equal,
+    so the order is the input order."""
     g = torch.Generator().manual_seed(seed)
-    keys = torch.randint(0, max(2, m // 8), (m,), generator=g, dtype=torch.int32)
-    keys[torch.rand(m, generator=g) < 0.2] = sort.INT32_MAX
-    vals = [torch.randint(0, 50, (m,), generator=g, dtype=torch.int32)] if n_keys == 2 else []
-    vals += [torch.arange(m, dtype=torch.int32), torch.randn(m, generator=g)]
-    return keys, vals
+    if kind == "mixed":
+        words = [torch.randint(0, max(2, m // 8), (m,), generator=g, dtype=torch.int32),
+                 torch.randint(0, 50, (m,), generator=g, dtype=torch.int32)]
+        words[0][torch.rand(m, generator=g) < 0.2] = sort.INT32_MAX
+    elif kind == "extremes":
+        pick = torch.tensor([-2**31, -2**31 + 1, -1, 0, 1, sort.INT32_MAX - 1, sort.INT32_MAX],
+                            dtype=torch.int32)
+        words = [pick[torch.randint(0, 7, (m,), generator=g)] for _ in range(2)]
+    else:
+        words = [torch.full((m,), 7, dtype=torch.int32), torch.full((m,), -3, dtype=torch.int32)]
+    vals = words[1:n_keys] + [torch.arange(m, dtype=torch.int32), torch.randn(m, generator=g)]
+    return words[0], vals
 
 
-@pytest.mark.parametrize("n_keys", [1, 2])
-@pytest.mark.parametrize("m", [1, 2, 1000, 2048, 2049, 65536, 557056])
-def test_sort_kernel_matches_plain(cuda, m, n_keys):
-    """The kernel breaks ties by position, so it equals the stable plain
-    version exactly, payloads (float bits included) and all."""
-    keys, vals = _sort_inputs(m, m + n_keys, n_keys)
-    before = sort.sort_pairs.launches
-    got = sort.sort_pairs(keys.to(cuda), *(v.to(cuda) for v in vals), n_keys=n_keys)
-    assert sort.sort_pairs.launches == before + 1
+def _kernel_twice(fn, *args, **kwargs):
+    """Two calls of a kernel wrapper on the card, each counted once; the
+    second must be bit-equal to the first (no state of a call may show)."""
+    before = fn.launches
+    got = fn(*args, **kwargs)
+    again = fn(*args, **kwargs)
+    assert fn.launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    return got
+
+
+SORT_LENGTHS = [1, 2, 1000, 4095, 4096, 4097, 65536, 557056]
+
+
+@pytest.mark.parametrize("kind", ["mixed", "extremes", "equal"])
+@pytest.mark.parametrize("m,n_keys", [(m, k) for m in SORT_LENGTHS for k in (1, 2)]
+                         + [(2**21, 2)])
+def test_sort_kernel_matches_plain(cuda, m, n_keys, kind):
+    """The kernel is stable, so it equals the stable plain version exactly,
+    payloads (float bits included) and all: at lengths around the 4,096-entry
+    tile (4,097: a one-entry right run) and at the routes' sizes (the
+    reduce's 557,056 keys, whose 17 runs of 32,768 leave a run with an
+    empty partner; two words at the LEX route's 2^21)."""
+    keys, vals = _sort_inputs(m, m + n_keys, n_keys, kind)
+    got = _kernel_twice(sort.sort_pairs, keys.to(cuda),
+                        *(v.to(cuda) for v in vals), n_keys=n_keys)
     want = sort.sort_pairs_plain(keys, *vals, n_keys=n_keys)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
 
 
-@pytest.mark.parametrize("block", [128, 2048, 8192])
-def test_sort_blocks_kernel_matches_plain(cuda, block):
-    keys, vals = _sort_inputs(16384, block, 2)
-    got = sort.sort_blocks(keys.to(cuda), *(v.to(cuda) for v in vals), block=block, n_keys=2)
-    want = sort.sort_blocks_plain(keys, *vals, block=block, n_keys=2)
+@pytest.mark.parametrize("n_keys", [1, 2])
+@pytest.mark.parametrize("block", [128, 2048, 4096, 8192, 32768])
+def test_sort_blocks_kernel_matches_plain(cuda, block, n_keys):
+    """Blocks below the tile (sorted inside one CTA), at it, and above it
+    (merge passes stopped at the block)."""
+    keys, vals = _sort_inputs(65536, block, n_keys)
+    got = _kernel_twice(sort.sort_blocks, keys.to(cuda),
+                        *(v.to(cuda) for v in vals), block=block, n_keys=n_keys)
+    want = sort.sort_blocks_plain(keys, *vals, block=block, n_keys=n_keys)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
 
 
-@pytest.mark.parametrize("key_bound", [1, 64, 2172, 65537, 5_000_000])
-@pytest.mark.parametrize("m", [1, 2047, 2048, 2049, 557056])
-def test_counting_sort_kernel_matches_plain(cuda, m, key_bound):
+@pytest.mark.parametrize("one_bucket", [False, True])
+@pytest.mark.parametrize("key_bound", [1, 2, 256, 257, 2172, 65537, 5_000_000, 2**31 - 1])
+@pytest.mark.parametrize("m", [1, 4095, 4096, 4097, 557056])
+def test_counting_sort_kernel_matches_plain(cuda, m, key_bound, one_bucket):
+    """One to four 8-bit passes; a heavy top bucket, or every key in one
+    bucket (one digit over whole tiles)."""
     g = torch.Generator().manual_seed(m + key_bound)
     key = torch.randint(0, key_bound, (m,), generator=g, dtype=torch.int32)
     key[torch.rand(m, generator=g) < 0.3] = key_bound - 1  # a heavy top bucket
+    if one_bucket:
+        key[:] = key_bound // 2
     vals = [torch.arange(m, dtype=torch.int32), torch.randn(m, generator=g)]
-    before = radix.counting_sort.launches
-    got = radix.counting_sort(key.to(cuda), *(v.to(cuda) for v in vals), key_bound=key_bound)
-    assert radix.counting_sort.launches == before + 1
+    got = _kernel_twice(radix.counting_sort, key.to(cuda),
+                        *(v.to(cuda) for v in vals), key_bound=key_bound)
     want = radix.counting_sort_plain(key, *vals, key_bound=key_bound)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("key_bound,passes", [
+    (1, 1), (2, 1), (256, 1), (257, 2), (2171, 2), (65537, 3), (2**31 - 1, 4)])
+def test_counting_sort_pass_plan(cuda, key_bound, passes):
+    """csrc/radix.cu's plan: as few 8-bit passes as key_bound allows (2 for
+    binning's 2,171 tile ids, 3 for the reduce's 65,537 gaussian ids, 4 at
+    2^31 - 1)."""
+    assert radix.kernel_plan(1000, key_bound)[0] == passes
+
+
+@pytest.mark.parametrize("m,key_bound,tiles,hist_blocks", [
+    (1, 1, 1, 1), (4096, 2171, 1, 1), (4097, 2171, 2, 2), (557056, 65537, 136, 64)])
+def test_counting_sort_scratch_plan(cuda, m, key_bound, tiles, hist_blocks):
+    """Scratch: two key and index buffers, the upfront counts of each
+    histogram block (at most 64), the digit offsets, the tile counters, one
+    look-back word per (pass, 4,096-key tile, digit)."""
+    passes, words = radix.kernel_plan(m, key_bound)
+    assert words == 3 * m + (hist_blocks + 1) * passes * 256 + 4 + passes * tiles * 256
+
+
+@pytest.mark.parametrize("m,block,levels", [
+    (1, 0, 0), (4095, 0, 0), (4096, 0, 0), (4097, 0, 1), (8192, 0, 1), (8193, 0, 2),
+    (65536, 0, 4), (557056, 0, 8), (2**21, 0, 9),
+    (16384, 128, 0), (16384, 4096, 0), (16384, 8192, 1), (65536, 32768, 3)])
+def test_sort_merge_plan(cuda, m, block, levels):
+    """csrc/sort.cu's plan: a CTA sort of 4,096-entry tiles, one merge pass
+    per doubling up to the block (0: up to m); scratch of the source indices
+    and a ping-pong copy of the key words and indices, at length m."""
+    for n_keys in (1, 2):
+        assert sort.kernel_plan(m, n_keys, block) == (levels, (n_keys + 2) * m)
 
 
 ROUTES = {"radix": {"EGS_RADIX_SORT": "1", "EGS_RADIX_REDUCE": "1"},

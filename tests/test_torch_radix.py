@@ -113,3 +113,32 @@ def test_wrapper_rejects_bad_inputs():
         radix.counting_sort(k, key_bound=0)
     with pytest.raises(ValueError, match="value 0"):
         radix.counting_sort(k, torch.zeros(15, dtype=torch.int32), key_bound=4)
+
+
+@pytest.mark.parametrize("key_bound", [1, 2, 256, 257, 2**31 - 1])
+def test_key_bounds(key_bound):
+    """One 8-bit pass (1, 2, 256 buckets), two (257: a last pass of 2
+    buckets) and four (2^31 - 1), against JAX's 6-bit passes."""
+    rng = np.random.default_rng(key_bound % 1000)
+    m = 2048
+    key = rng.integers(0, key_bound, m)
+    key[rng.random(m) < 0.2] = key_bound - 1
+    _check(key, [np.arange(m)], key_bound)
+
+
+@pytest.mark.parametrize("key_bound", [2, 300, 65537])
+def test_every_key_in_one_bucket(key_bound):
+    """One digit over every tile of every pass: the stable order is the
+    input order."""
+    m = 1536
+    _check(np.full(m, key_bound // 2), [np.arange(m)], key_bound)
+
+
+def test_length_limit():
+    """Lengths of 2^30 and more are refused (the look-back words hold 30-bit
+    counts); meta tensors, so nothing is allocated."""
+    with pytest.raises(ValueError, match="below 2"):
+        radix.counting_sort(torch.empty(2**30, dtype=torch.int32, device="meta"), key_bound=4)
+    with pytest.raises(ValueError, match="device"):
+        radix.counting_sort(torch.empty(2**30 - 1, dtype=torch.int32, device="meta"),
+                            key_bound=4)

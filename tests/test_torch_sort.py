@@ -161,3 +161,85 @@ def test_wrappers_reject_bad_inputs():
     for block in (96, 64, 512):  # not a power of two; below 128; does not divide 256
         with pytest.raises(ValueError, match="block"):
             sort.sort_blocks(k, block=block)
+
+
+@pytest.mark.parametrize("n_keys", [1, 2])
+@pytest.mark.parametrize("m", [1, 3, 777, 4097])
+def test_odd_lengths_and_one_past_the_tile(m, n_keys):
+    """Lengths the merge sort takes as they are (no power-of-two padding):
+    m = 1, odd lengths, and one past the kernel's 4,096-entry tile (a merge
+    with a one-entry right run), with one key word and with two."""
+    rng = np.random.default_rng(m + 7)
+    words = [rng.integers(-50, 50, size=m).astype(np.int32) for _ in range(2)]
+    vals = words[1:n_keys] + [np.arange(m, dtype=np.int32),
+                              rng.normal(size=m).astype(np.float32)]
+    got, _ = _check(words[0], vals, n_keys)
+    np.testing.assert_array_equal(got[n_keys], np.lexsort(words[:n_keys][::-1]))
+
+
+@pytest.mark.parametrize("n_keys", [1, 2])
+def test_signed_extremes(n_keys):
+    """Key words at and next to INT32_MIN, 0 and INT32_MAX: the order is on
+    signed words, lexicographic for two. A power-of-two length: the JAX
+    network pads others with (INT32_MAX, 0), which may displace real
+    (INT32_MAX, x) entries past the slice."""
+    rng = np.random.default_rng(8 + n_keys)
+    m = 1024
+    pick = np.array([-2**31, -2**31 + 1, -1, 0, 1, INT32_MAX - 1, INT32_MAX], np.int32)
+    words = [pick[rng.integers(0, 7, m)] for _ in range(2)]
+    vals = words[1:n_keys] + [np.arange(m, dtype=np.int32)]
+    got, _ = _check(words[0], vals, n_keys)
+    order = np.lexsort(words[:n_keys][::-1])  # stable, by the last key given first
+    np.testing.assert_array_equal(got[-1], order)
+
+
+@pytest.mark.parametrize("n_keys", [1, 2])
+def test_all_equal_keys(n_keys):
+    """Every key word equal: the stable order is the input order."""
+    m = 1000
+    words = [np.full(m, 5, np.int32), np.full(m, -9, np.int32)]
+    pay = np.random.default_rng(10).normal(size=m).astype(np.float32)
+    vals = words[1:n_keys] + [np.arange(m, dtype=np.int32), pay]
+    got, _ = _check(words[0], vals, n_keys)
+    np.testing.assert_array_equal(got[-2], np.arange(m))
+    np.testing.assert_array_equal(_words(got[-1]), _words(pay))
+
+
+@pytest.mark.parametrize("n_keys", [1, 2])
+@pytest.mark.parametrize("block", [128, 2048, 8192])
+def test_sort_blocks_below_and_above_the_tile(block, n_keys):
+    """Blocks sorted inside one CTA of the kernel (below 4,096) and by merge
+    passes stopped at the block (above it), against JAX, with one key word
+    and with two; the port's order within each block is the stable one."""
+    rng = np.random.default_rng(block)
+    m = 16384
+    words = [rng.integers(-20, 20, size=m).astype(np.int32) for _ in range(2)]
+    vals = words[1:n_keys] + [np.arange(m, dtype=np.int32),
+                              rng.normal(size=m).astype(np.float32)]
+    got = [o.numpy() for o in sort.sort_blocks(
+        torch.from_numpy(words[0]), *(torch.from_numpy(v) for v in vals), block=block,
+        n_keys=n_keys)]
+    want = [np.asarray(o) for o in jax_sort_blocks(
+        jnp.asarray(words[0]), *(jnp.asarray(v) for v in vals), block=block, n_keys=n_keys,
+        interpret=True)]
+    for b in range(0, m, block):
+        s = slice(b, b + block)
+        for j in range(n_keys):
+            np.testing.assert_array_equal(got[j][s], want[j][s])
+        np.testing.assert_array_equal(_as_pairs([g[s] for g in got]),
+                                      _as_pairs([w[s] for w in want]))
+        np.testing.assert_array_equal(
+            got[n_keys][s], b + np.lexsort([w[s] for w in words[:n_keys][::-1]]))
+
+
+@pytest.mark.parametrize("entry", ["sort_pairs", "sort_blocks"])
+def test_length_limit(entry):
+    """Lengths of 2^30 and more are refused before anything is allocated
+    (meta tensors: no memory); 2^30 - 1 passes the length check and stops at
+    the device check."""
+    fn = getattr(sort, entry)
+    kw = {"block": 128} if entry == "sort_blocks" else {}
+    with pytest.raises(ValueError, match="below 2"):
+        fn(torch.empty(2**30, dtype=torch.int32, device="meta"), **kw)
+    with pytest.raises(ValueError, match="device"):
+        fn(torch.empty(2**30 - 128, dtype=torch.int32, device="meta"), **kw)
