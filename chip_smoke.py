@@ -8,7 +8,10 @@ gaussians, SH degree 3, 979x546, max_patches 557,056, max_rows 229,376):
 
 * the render path: a few renders through the port's entry point, checked
   against the all-plain path, then K1, K3 and K4 each held against its plain
-  PyTorch version on the render's inputs, and the render CLI once;
+  PyTorch version on the render's inputs, and the render CLI once; K4 and
+  K5 also print the work this data needs (pairs, warp-iterations, K5's
+  shuffles), their compiled inner loops (cuobjdump) and their registers
+  and resident blocks an SM;
 * the training path: ground truth of 4 views rendered by the port, a pool
   started from the scene with perturbed opacities and colours, and 23 steps
   of ``make_train_step`` (3 warm, 20 timed) cycling the views; then one step
@@ -165,6 +168,9 @@ K9_RTOL = 1e-6
 K10_RTOL = 1e-5
 PLANTED = 1e-3
 GATE_CHECKS = 36
+# K5's cross-pixel reduction (csrc/rasterize_bwd.cu): a 12-shuffle
+# reduce-scatter of the nine terms per (entry, warp) with a live pair
+K5_SHUFFLES = 12
 
 
 # device kernel names of each port kernel (csrc/)
@@ -403,14 +409,44 @@ def phase_k3(device, flush, clock_mhz, n_sm):
             **bound(elems * 8, 0, 0, clock_mhz, n_sm, int_ops=elems)}, lines
 
 
-def k4_pairs(binning, final_tau, contrib):
-    """(entry, pixel) pairs this data needs: a pixel that saturated stops at
-    its last contributor, any other one walks its whole tile list."""
-    gx = -(-WIDTH // 16)
-    ty = torch.arange(HEIGHT, device=contrib.device)[:, None] // 16
-    tx = torch.arange(WIDTH, device=contrib.device)[None, :] // 16
-    cnt = binning["tile_cnt"].long()[ty * gx + tx]
-    return int(torch.where(final_tau < 1e-4, contrib.long(), cnt).sum())
+def k4_walk(tile_cnt, final_tau, contrib):
+    """Each pixel's walk in K4 [H, W]: a pixel that saturated stops at its
+    last contributor, any other one walks its whole tile list."""
+    gx = -(-WIDTH // TILE)
+    ty = torch.arange(HEIGHT, device=contrib.device)[:, None] // TILE
+    tx = torch.arange(WIDTH, device=contrib.device)[None, :] // TILE
+    return torch.where(final_tau < 1e-4, contrib.long(), tile_cnt.long()[ty * gx + tx])
+
+
+def sass_loop(kernel):
+    """The compiled inner loop of a blend kernel, read from the built
+    library with cuobjdump: (SASS instructions in the smallest loop that
+    holds an ex2, its SHFL count), or None where cuobjdump is missing. The
+    loop is one warp-iteration of K4, one (entry, warp) step of K5."""
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(_build.BUILD_DIR / _build.LIB_NAME)],
+                         capture_output=True, text=True, timeout=300, check=True).stdout
+    body = next(f for f in out.split("Function : ")[1:] if kernel in f.split("\n", 1)[0])
+    ins = [(int(a, 16), i) for a, i in re.findall(r"/\*([0-9a-f]{4})\*/\s+([^;]*);", body)]
+    at = {a: k for k, (a, _) in enumerate(ins)}
+    loops = []
+    for k, (a, i) in enumerate(ins):
+        m = re.search(r"BRA\s+(?:!?U?P\w+,\s*)?0x([0-9a-f]+)", i)
+        if m and int(m.group(1), 16) < a and int(m.group(1), 16) in at:
+            loop = [x for _, x in ins[at[int(m.group(1), 16)]:k + 1]]
+            if any("MUFU.EX2" in x for x in loop):
+                loops.append(loop)
+    loop = min(loops, key=len)
+    return len(loop), sum("SHFL" in x for x in loop)
+
+
+def kernel_info_line(label, kernel):
+    info = rasterize.kernel_info(kernel)
+    return (f"{label} as compiled: {info['registers']} registers a thread, "
+            f"{info['blocks_per_sm']} resident blocks an SM "
+            f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
 
 
 def phase_k4(device, flush, clock_mhz, n_sm):
@@ -441,13 +477,23 @@ def phase_k4(device, flush, clock_mhz, n_sm):
     n_distinct = int(torch.unique(b["patch_gsid"][:kept]).numel()) if kept else 0
     n_tiles = b["tile_cnt"].numel()
     nbytes = kept * 4 + n_tiles * 8 + n_distinct * 9 * 4 + n_pix * 5 * 4
-    pairs = k4_pairs(b, tau, cont)
-    lines.append(f"K4 evaluated (entry, pixel) pairs this data needs: {pairs}")
+    work = blend_work(table, b["patch_gsid"], b["tile_start"], b["tile_cnt"],
+                      k4_walk(b["tile_cnt"], tau, cont))
+    lines.append(
+        "K4 work this data needs: (entry, pixel) pairs evaluated {evaluated}, past the cutoff "
+        "{passed}, live {live}; warp-iterations {warp_iters} (2 warps of 16x8 pixels a "
+        "tile)".format(**work))
+    lines.append(kernel_info_line("K4", "fwd"))
+    loop = sass_loop("rasterize_fwd_kernel")
+    lines.append("K4 compiled inner loop (cuobjdump -sass): " + (
+        "not measured (no cuobjdump)" if loop is None else
+        f"{loop[0]} instructions a warp-iteration, {loop[0] / 4:.2f} per 32-pixel slot (4 pixels "
+        f"a lane); {loop[0] * work['warp_iters']} issued over this data's warp-iterations"))
     return {"name": "K4 rasterize_fwd", "route": "cuda",
             "source": "easygaussiansplatting_tpu_torch/csrc/rasterize_fwd.cu",
             "replaces": "easygaussiansplatting_tpu/ops/pallas/kernels.py:174",
             "max_abs_err": max(err_img, err_tau), **timing,
-            **bound(nbytes, pairs * 15, pairs, clock_mhz, n_sm)}, lines
+            **k4_bound(nbytes, work, clock_mhz, n_sm)}, lines
 
 
 def phase_slice(device):
@@ -748,25 +794,38 @@ def phase_k2(seen, flush, clock_mhz, n_sm):
             **bound(nbytes, n * 600, 0, clock_mhz, n_sm)}, lines
 
 
-def k5_work(table, patch_gsid, tile_start, tile_cnt, contrib):
-    """What K5's walk does on this data, counted with the plain evaluation of
-    alpha' (ops/blend.chunk_alpha) in K5's chunk order: the (entry, pixel)
-    pairs evaluated (positions below the pixel's contributor count); of
-    those the live ones (alpha' >= ALPHA_SKIP), of those the unclamped ones
-    (alpha' < ALPHA_CLAMP), and of those the ones with maha > 0; and the
-    (entry, tile) reductions (positions below the tile's largest count)."""
+def blend_constant(name):
+    """A float constant of csrc/blend.cuh, the kernels' own value."""
+    text = (ROOT / "easygaussiansplatting_tpu_torch" / "csrc" / "blend.cuh").read_text()
+    return float(re.search(rf"constexpr float {name} = ([-+0-9.eE]+)f;", text).group(1))
+
+
+def blend_work(table, patch_gsid, tile_start, tile_cnt, walk):
+    """What K4's or K5's walk does on this data, counted with the plain
+    evaluation of alpha' (ops/blend.chunk_alpha); ``walk`` [H, W] is each
+    pixel's walked length (K4: k4_walk; K5: contrib), the pairs at positions
+    below it are evaluated. Counts: ``evaluated`` pairs; of those ``passed``
+    the cutoff of csrc/blend.cuh (alpha' >= ALPHA_SKIP * 2^-CUTOFF_MARGIN:
+    they take the exponential), ``live`` (alpha' >= ALPHA_SKIP),
+    ``unclamped`` (and alpha' < ALPHA_CLAMP), ``moments`` (and maha > 0);
+    ``entry_tile``: positions below each tile's largest walk; per warp of
+    the kernels (16x8 pixels, two a tile) ``warp_iters``, the positions
+    below its largest walk, and ``warp_live``, the (entry, warp) pairs with
+    a live pair (K5's reductions)."""
     dev = table.device
     gx, gy = num_tiles(WIDTH, HEIGHT)
-    cont = torch.zeros((gy * TILE, gx * TILE), dtype=torch.int64, device=dev)
-    cont[:HEIGHT, :WIDTH] = contrib
-    cont = cont.reshape(gy, TILE, gx, TILE).transpose(1, 2).reshape(gx * gy, TILE * TILE)
-    maxc = torch.minimum(cont.amax(1), tile_cnt.long())
+    walk_t = torch.zeros((gy * TILE, gx * TILE), dtype=torch.int64, device=dev)
+    walk_t[:HEIGHT, :WIDTH] = walk
+    walk_t = walk_t.reshape(gy, TILE, gx, TILE).transpose(1, 2).reshape(gx * gy, TILE * TILE)
+    maxc = torch.minimum(walk_t.amax(1), tile_cnt.long())
     t = torch.arange(gx * gy, device=dev)
     origin = torch.stack([(t % gx) * TILE, (t // gx) * TILE], dim=1).float()
     lin = torch.arange(TILE * TILE, device=dev)
     px, py = (lin % TILE).float(), (lin // TILE).float()
     k_off = torch.arange(K_CHUNK, device=dev)
-    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    edge = ALPHA_SKIP * 2.0 ** -blend_constant("CUTOFF_MARGIN")
+    names = ("evaluated", "passed", "live", "unclamped", "moments", "warp_live")
+    counts = torch.zeros(len(names), dtype=torch.int64, device=dev)
     for c in range(-(-int(maxc.max()) // K_CHUNK)):
         pos = c * K_CHUNK + k_off[None, :]  # [1, K]
         idx = torch.clamp(tile_start[:, None].long() + pos, 0, patch_gsid.numel() - 1)
@@ -774,31 +833,51 @@ def k5_work(table, patch_gsid, tile_start, tile_cnt, contrib):
         row = table[patch_gsid[idx].clamp(min=0).long()]  # [T, K, TABLE_COLS]
         ap, (_, _, maha) = chunk_alpha(row[..., 0:2] - origin[:, None, :], row[..., 2:5],
                                        row[..., 5], ok, px, py)
-        evaluated = pos[..., None] < cont[:, None, :]  # [T, K, P]
+        evaluated = pos[..., None] < walk_t[:, None, :]  # [T, K, P]
         live = evaluated & (ap >= ALPHA_SKIP)
         unclamped = live & (ap < ALPHA_CLAMP)
-        counts += torch.stack([evaluated.sum(), live.sum(), unclamped.sum(),
-                               (unclamped & (maha > 0)).sum()])
-    return [int(v) for v in counts] + [int(maxc.sum())]
+        tk = live.shape[:2]
+        counts += torch.stack([evaluated.sum(), (evaluated & (ap >= edge)).sum(), live.sum(),
+                               unclamped.sum(), (unclamped & (maha > 0)).sum(),
+                               live.reshape(*tk, 2, -1).any(-1).sum()])
+    work = dict(zip(names, (int(v) for v in counts)))
+    work["entry_tile"] = int(maxc.sum())
+    work["warp_iters"] = int(torch.minimum(walk_t.reshape(gx * gy, 2, -1).amax(-1),
+                                           tile_cnt.long()[:, None]).sum())
+    return work
+
+
+def k4_bound(nbytes, work, clock_mhz, n_sm):
+    """K4's bound from blend_work's counts, with the FP32 operations and MUFU
+    results counted from csrc/rasterize_fwd.cu and csrc/blend.cuh, for the
+    pairs the data needs: an exponential only where blend.cuh's cutoff
+    passes (the kernel takes one for every pair it walks, branch-free).
+    evaluated: the quad's four offsets (1 a pixel), the exponent 5, the
+    stop and skip compares 2; passed: min(e, 0), * alpha, the 0.99 clamp 3,
+    and one ex2; live: tau * alpha' 1, the colours 3, 1 - alpha' and the
+    tau product 2."""
+    ops = work["evaluated"] * 8 + work["passed"] * 3 + work["live"] * 6
+    return bound(nbytes, ops, work["passed"], clock_mhz, n_sm)
 
 
 def k5_bound(nbytes, work, clock_mhz, n_sm):
-    """K5's bound from k5_work's counts, with the FP32 operations and MUFU
+    """K5's bound from blend_work's counts, with the FP32 operations and MUFU
     results counted from csrc/rasterize_bwd.cu and csrc/blend.cuh (a
     division as a reciprocal and a multiply, the least it costs)."""
-    evaluated, live, unclamped, moments, entries = work
-    # evaluated: blend_alpha (dx, dy 2; maha 7 mul + 2 add; max, *-0.5,
-    # *alpha, min 4) 15, the skip compare 1, and its share of the reduction,
-    # 9 adds; one exp.
-    # live: 1 - alpha' 1, tau's division 1, tau*alpha' 1, g.c 5, d alpha'
-    # (tau*g.c, max, division, subtract) 4, the behind sum 2, the clamp
-    # compare 1, the three colour terms 3; two reciprocals.
-    # unclamped: d alpha' * alpha' 1, the maha compare 1.
-    # maha > 0: d maha 1, the five moments 5 (dm*dx reused).
-    # (entry, tile): the gradients from the nine sums (rows 0, 1 and 3: 10;
-    # the max 1) and a division 1; one reciprocal.
-    ops = evaluated * 25 + live * 18 + unclamped * 2 + moments * 6 + entries * 12
-    mufu = evaluated + live * 2 + entries
+    # evaluated: the offsets 1, the exponent 5, the cutoff and skip compares
+    # 2; passed: as K4 (3 and one ex2).
+    # live: 1 - alpha' and its clamp 2, the tau product 1, tau*alpha' 1,
+    # g.c 3, d alpha' 2, the behind sum 1, the clamp compare 1, the three
+    # colour terms 3; one reciprocal.
+    # unclamped: d alpha' * alpha' and its sum 2, the maha compare 1.
+    # maha > 0: d maha 1, dm*dx and dm*dy 2, the five moment sums 5.
+    # (entry, warp) with a live pair: the reduce-scatter's 12 adds.
+    # (entry, tile): the two warps' sums 9, the gradients from them (rows
+    # 0, 1 and 3: 10; the max 1) and a division 1; one reciprocal.
+    ops = (work["evaluated"] * 8 + work["passed"] * 3 + work["live"] * 14
+           + work["unclamped"] * 3 + work["moments"] * 8 + work["warp_live"] * 12
+           + work["entry_tile"] * 21)
+    mufu = work["passed"] + work["live"] + work["entry_tile"]
     return bound(nbytes, ops, mufu, clock_mhz, n_sm)
 
 
@@ -813,9 +892,21 @@ def phase_k5(seen, flush, clock_mhz, n_sm):
     timing = timings(lambda: rasterize.rasterize_bwd(*args, **kw),
                      lambda: rasterize.rasterize_bwd_plain(*args, **kw),
                      clock_mhz, flush, plain_iters=3)
-    work = k5_work(table, patch_gsid, tile_start, tile_cnt, contrib)
-    lines.append("K5 work this data needs: (entry, pixel) pairs evaluated {}, live {}, "
-                 "unclamped {}, with maha > 0 {}; (entry, tile) reductions {}".format(*work))
+    work = blend_work(table, patch_gsid, tile_start, tile_cnt, contrib)
+    lines.append("K5 work this data needs: (entry, pixel) pairs evaluated {evaluated}, past the "
+                 "cutoff {passed}, live {live}, unclamped {unclamped}, with maha > 0 {moments}; "
+                 "(entry, tile) steps {entry_tile}".format(**work))
+    lines.append(
+        f"K5 cross-pixel reduction: {K5_SHUFFLES} shuffles per (entry, warp) with a live pair, "
+        f"{2 * K5_SHUFFLES} per (entry, tile) at most; this data: {work['warp_live']} such "
+        f"(entry, warp) steps, {K5_SHUFFLES * work['warp_live']} shuffles")
+    lines.append(kernel_info_line("K5", "bwd"))
+    loop = sass_loop("rasterize_bwd_kernel")
+    require(loop is not None, "cuobjdump is missing beside nvcc: K5's inner loop not read")
+    lines.append(f"K5 compiled inner loop (cuobjdump -sass): {loop[0]} instructions an "
+                 f"(entry, warp) step, {loop[1]} of them shuffles")
+    require(loop[1] == K5_SHUFFLES,
+            f"K5's inner loop compiles to {loop[1]} shuffles, the design has {K5_SHUFFLES}")
     kept = int(tile_cnt.sum())
     n_distinct = int(torch.unique(patch_gsid[:kept]).numel()) if kept else 0
     m = patch_gsid.numel()

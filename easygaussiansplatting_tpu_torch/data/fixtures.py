@@ -53,3 +53,58 @@ def example_camera(dtype=np.float64):
         "cx": cx,
         "cy": cy,
     }
+
+
+STACK_SLOTS = 640  # patch slots of stacked_tile: the largest list, 513, rounded up to 128
+
+
+def stacked_tile(n, seed=0):
+    """One 16x16 tile whose list holds ``n`` entries, for the stage-6 blend
+    at the edges of its kernels' batches (test sizes such as 63/64/65 and
+    511/512/513). Not in the JAX package: a fixture of the port's tests.
+
+    Entry j is gaussian j, so each gaussian has one patch and its table
+    cotangent row is its patch's gradient row. The kinds, drawn per entry:
+    opaque ones in the top-left quarter (its pixels saturate), faint ones
+    on the right (its pixels walk the whole list), ones with alpha 0.002 or
+    0.0021 (alpha' on the skip threshold near their centre), ones with alpha
+    0.99, 0.995 or 1 at the top left (alpha' clamped at 0.99 near their
+    centre), and patch ids of -1 (dropped entries). The last entry is a wide
+    faint one on the right, so some pixel's last contributor is entry n.
+    Entries before the last are the same for every n.
+
+    Returns float32 numpy arrays us [S,2], cinv2ds [S,3] (conic a, b, c),
+    alphas [S], colors [S,3] for S = STACK_SLOTS gaussians (rows past n
+    unused), and int32 patch_gsid [S] (-1 past n), tile_start [1] = 0 and
+    tile_cnt [1] = n.
+    """
+    if not 0 < n <= STACK_SLOTS:
+        raise ValueError(f"n must be in [1, {STACK_SLOTS}], got {n}")
+    rng = np.random.default_rng(seed)
+    s = STACK_SLOTS
+    kind = rng.choice(5, size=s, p=[0.3, 0.45, 0.1, 0.05, 0.1])
+    left = (kind == 0) | (kind == 3)
+    us = np.where(left[:, None], rng.uniform(-1.0, 7.0, (s, 2)),
+                  np.stack([rng.uniform(6.0, 18.0, s), rng.uniform(-2.0, 18.0, s)], axis=1))
+    sigma = np.where(kind[:, None] == 3, rng.uniform(0.8, 1.5, (s, 2)),
+                     rng.uniform(1.0, 5.0, (s, 2)))
+    theta = rng.uniform(0.0, np.pi, s)
+    alphas = np.select([kind == 0, kind == 1, kind == 2, kind == 3],
+                       [rng.uniform(0.6, 0.98, s), rng.uniform(0.003, 0.03, s),
+                        rng.choice([0.002, 0.0021], s), rng.choice([0.99, 0.995, 1.0], s)],
+                       rng.uniform(0.05, 0.5, s))
+    us[n - 1], sigma[n - 1], theta[n - 1], alphas[n - 1] = (13.0, 12.0), (6.0, 5.0), 0.3, 0.05
+    c, si = np.cos(theta), np.sin(theta)
+    va, vb = sigma[:, 0] ** 2, sigma[:, 1] ** 2
+    # covariance R diag(va, vb) R^T, inverted: conic (a, b, c) with
+    # maha = a dx^2 + 2 b dx dy + c dy^2
+    cxx, cxy, cyy = c * c * va + si * si * vb, c * si * (va - vb), si * si * va + c * c * vb
+    det = cxx * cyy - cxy * cxy
+    cinv2ds = np.stack([cyy / det, -cxy / det, cxx / det], axis=1)
+    gsid = np.where((kind == 4) & (np.arange(s) < n - 1), -1, np.arange(s))
+    gsid[n:] = -1
+    return {"us": us.astype(np.float32), "cinv2ds": cinv2ds.astype(np.float32),
+            "alphas": alphas.astype(np.float32),
+            "colors": rng.uniform(0.0, 1.0, (s, 3)).astype(np.float32),
+            "patch_gsid": gsid.astype(np.int32), "tile_start": np.zeros(1, np.int32),
+            "tile_cnt": np.full(1, n, np.int32)}

@@ -62,6 +62,15 @@ def blend_chunk_fwd(tau_in, us_k, cinv_k, alpha_k, color_k, mask_k, px, py):
     wgt = torch.where(contribute, tau_ex * ap, 0.0)  # [..., K, P]
     color_add = torch.matmul(wgt.transpose(-1, -2), color_k)  # [..., P, 3]
     tau_out = tau_in * torch.prod(torch.where(contribute, 1.0 - ap, 1.0), dim=-2)
+    # Where the stop fell inside the chunk, leave with the tau its test saw
+    # (the largest tau_ex it excluded, the first): the product above rounds
+    # apart from the cumulative one and could climb back to TAU_STOP, and a
+    # later chunk would then contribute behind entries this one excluded,
+    # which the backward's replay (every live entry below contrib) cannot
+    # represent.
+    stopped = m1 & (tau_ex < TAU_STOP)
+    tau_out = torch.where(stopped.any(dim=-2),
+                          torch.amax(torch.where(stopped, tau_ex, 0.0), dim=-2), tau_out)
     k_idx = torch.arange(1, ap.shape[-2] + 1, dtype=torch.int32, device=ap.device)[:, None]
     cont_local = torch.amax(torch.where(contribute, k_idx, 0), dim=-2)
     return color_add, tau_out, cont_local.to(torch.int32)

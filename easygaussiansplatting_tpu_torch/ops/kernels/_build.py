@@ -49,6 +49,8 @@ SIGNATURES = {
     "egs_segmented_cumsum_f32": [_P, _P, _P, _P, _P, _I, _L, _I, _P],
     "egs_rasterize_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "egs_rasterize_bwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    # K4's (0) or K5's (1) registers and resident blocks an SM, to two ints
+    "egs_rasterize_info": [_I, _P],
     # the payload columns go in as two host arrays of device pointers
     # and one uninitialised scratch buffer with its length in int32 words
     "egs_sort": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _L, _L, _L, _P],

@@ -25,6 +25,8 @@ package; the JAX package's opt-in routes sort with K7 or K8 instead
 (:func:`sort_reduce_grads`).
 """
 
+import ctypes
+
 import torch
 
 from easygaussiansplatting_tpu_torch.ops.binning import num_tiles
@@ -142,6 +144,20 @@ def rasterize_bwd(table, patch_gsid, tile_start, tile_cnt, g_image, final_tau, c
 
 
 rasterize_bwd.launches = 0
+
+
+def kernel_info(kernel):
+    """What the compiled K4 (``"fwd"``) or K5 (``"bwd"``) kernel takes on the
+    card: {"registers": per thread, "blocks_per_sm": resident blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)}. Builds the kernels
+    first if needed; needs the card."""
+    if kernel not in ("fwd", "bwd"):
+        raise ValueError(f"kernel must be 'fwd' or 'bwd', got {kernel!r}")
+    out = (ctypes.c_int * 2)()
+    _build.check(_build.library().egs_rasterize_info(("fwd", "bwd").index(kernel),
+                                                     ctypes.addressof(out)),
+                 "egs_rasterize_info")
+    return dict(zip(("registers", "blocks_per_sm"), out))
 
 
 def sort_reduce_grads(rows, patch_gsid, gsid_counts, use_kernels=True):

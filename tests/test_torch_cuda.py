@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from easygaussiansplatting_tpu_torch.data import example_camera
+from easygaussiansplatting_tpu_torch.data.fixtures import stacked_tile
 from easygaussiansplatting_tpu_torch.data.synthetic import make_synthetic_scene
 from easygaussiansplatting_tpu_torch.models import Camera
 from easygaussiansplatting_tpu_torch.models.convert import gaussians_from_numpy
@@ -170,6 +171,41 @@ def test_rasterize_bwd_kernel_matches_plain(cuda, stack):
     want = rasterize.rasterize_bwd_plain(*args, g_img.to(cuda), tau, cont, **kw)
     for j in range(9):
         _close_per_group(got[j], want[j], f"row {j}")
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 511, 512, 513])
+def test_rasterize_kernels_on_stacked_tile(cuda, n):
+    """K4 and K5 against their plain versions on one tile whose list length
+    sits at and around the kernels' batch sizes (K5 64, K4 128), with
+    saturated and unsaturated pixels, alpha' on the 0.002 and 0.99
+    thresholds and dropped entries: K4 within 1e-4 on image and tau with
+    contrib equal on >= 99.99% of pixels, K5 each row within 1e-4 of its
+    max|want|, and two K5 calls bit-equal."""
+    f = {k: torch.from_numpy(v).to(cuda) for k, v in stacked_tile(n).items()}
+    s = f["us"].shape[0]
+    table = preprocess.pack_table(f["us"], f["cinv2ds"], f["alphas"], f["colors"],
+                                  torch.zeros(s, device=cuda), torch.zeros((s, 2), device=cuda))
+    args = (table, f["patch_gsid"], f["tile_start"], f["tile_cnt"])
+    kw = dict(width=16, height=16)
+    img, tau, cont = rasterize.rasterize_fwd(*args, **kw)
+    img_p, tau_p, cont_p = rasterize.rasterize_plain(*args, **kw)
+    torch.testing.assert_close(img, img_p, atol=1e-4, rtol=0)
+    torch.testing.assert_close(tau, tau_p, atol=1e-4, rtol=0)
+    assert float((cont != cont_p).float().mean()) <= 1e-4
+    assert int(cont.max()) == n
+    g_img = torch.randn((3, 16, 16), generator=torch.Generator().manual_seed(n)).to(cuda)
+    got = rasterize.rasterize_bwd(*args, g_img, tau, cont, **kw)
+    want = rasterize.rasterize_bwd_plain(*args, g_img, tau, cont, **kw)
+    for j in range(9):
+        _close_to_scale(got[j], want[j], f"row {j}", 1e-4)
+    assert torch.equal(got, rasterize.rasterize_bwd(*args, g_img, tau, cont, **kw))
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def test_rasterize_kernel_info(cuda, kernel):
+    """Each blend kernel fits at least 8 blocks on an SM."""
+    info = rasterize.kernel_info(kernel)
+    assert 0 < info["registers"] <= 255 and info["blocks_per_sm"] >= 8
 
 
 def _pool_and_gt(cuda):

@@ -1,6 +1,11 @@
 """PyTorch port: the plain version of K4 (the stage-6 wrapper on CPU tensors)
 against the JAX Pallas rasteriser run through the interpreter, on the same
-binning."""
+binning; and the blend constants that csrc/blend.cuh shares with both
+packages."""
+
+import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,9 +16,12 @@ from easygaussiansplatting_tpu.data import example_camera
 from easygaussiansplatting_tpu.models import Camera as JaxCamera
 from easygaussiansplatting_tpu.ops import stages as jax_stages
 from easygaussiansplatting_tpu.ops.binning import bin_gaussians as jax_bin
+from easygaussiansplatting_tpu.ops.pallas import kernels as jax_kernels
 from easygaussiansplatting_tpu.ops.pallas.rasterize import rasterize_pallas
-from easygaussiansplatting_tpu_torch.ops import rasterize_tiled
+from easygaussiansplatting_tpu_torch.data.fixtures import stacked_tile
+from easygaussiansplatting_tpu_torch.ops import blend, rasterize_tiled
 from easygaussiansplatting_tpu_torch.ops.kernels import preprocess, rasterize
+from easygaussiansplatting_tpu_torch.probes import chunk_stop
 
 torch.set_num_threads(2)
 
@@ -58,9 +66,9 @@ def _both(params, max_patches, k_chunk):
     return (img, tau, cont), (img_j, raux_j), b
 
 
-def _assert_match(got, want):
+def _assert_match(got, want, height=H, width=W):
     (img, tau, cont), (img_j, raux_j) = got, want
-    assert img.shape == (3, H, W) and tau.shape == cont.shape == (H, W)
+    assert img.shape == (3, height, width) and tau.shape == cont.shape == (height, width)
     # 3e-5: the Pallas forward reduces the transmittance product with a
     # halving tree, the plain version with chunked cumulative products
     np.testing.assert_allclose(img.numpy(), np.asarray(img_j), atol=3e-5)
@@ -128,3 +136,122 @@ def test_wrapper_rejects(bad):
     with pytest.raises(ValueError):
         rasterize.rasterize_fwd(table, gsid, start, cnt, width=W, height=H)
 
+
+
+# list lengths at and around the kernels' batch sizes (K5 stages 64 entries
+# a batch, K4 128) and the TPU kernel's 256-entry chunks
+STACK_SIZES = (63, 64, 65, 127, 128, 129, 255, 256, 257, 511, 512, 513)
+
+
+def stacked_both(n):
+    """The stacked tile through the port's plain K4 and the interpreted
+    Pallas forward. Returns ((image, final_tau, contrib), (image, aux) of
+    JAX, the port's table and binning tensors)."""
+    f = stacked_tile(n)
+    b = {k: jnp.asarray(f[k]) for k in ("patch_gsid", "tile_start", "tile_cnt")}
+    b["total"] = jnp.int32(n)
+    want = rasterize_pallas(*(jnp.asarray(f[k]) for k in ("us", "cinv2ds", "alphas", "colors")),
+                            b, width=16, height=16, k_chunk=128, interpret=True)
+    t = {k: torch.from_numpy(v) for k, v in f.items()}
+    s = t["us"].shape[0]
+    table = preprocess.pack_table(t["us"], t["cinv2ds"], t["alphas"], t["colors"],
+                                  torch.zeros(s), torch.zeros((s, 2)))
+    bins = (t["patch_gsid"], t["tile_start"], t["tile_cnt"])
+    got = rasterize.rasterize_fwd(table, *bins, width=16, height=16)
+    return got, want, table, bins
+
+
+@pytest.mark.parametrize("n", STACK_SIZES)
+def test_plain_k4_matches_pallas_on_stacked_tile(n):
+    got, want, _, _ = stacked_both(n)
+    img, tau, cont = got
+    assert 0 < int((tau < 1e-4).sum()) < 256  # some pixels saturate, some walk the list
+    assert int(cont.max()) == n
+    _assert_match(got, want, height=16, width=16)
+
+
+BLEND_CUH = Path(rasterize.__file__).resolve().parents[2] / "csrc" / "blend.cuh"
+
+
+def _cuh_constant(name):
+    m = re.search(rf"constexpr float {name} = ([-+0-9.eE]+)f;", BLEND_CUH.read_text())
+    assert m, f"{name} not found in {BLEND_CUH}"
+    return float(np.float32(m.group(1)))
+
+
+@pytest.mark.parametrize("name", ["ALPHA_CLAMP", "ALPHA_SKIP", "TAU_STOP"])
+def test_blend_constants_agree(name):
+    """The thresholds of csrc/blend.cuh equal the JAX package's
+    (ops/pallas/kernels.py) and the port's plain version's (ops/blend.py)."""
+    assert _cuh_constant(name) == float(np.float32(getattr(jax_kernels, name)))
+    assert _cuh_constant(name) == float(np.float32(getattr(blend, name)))
+
+
+def test_blend_cutoff_is_conservative():
+    """The kernels skip a pair without its exponential where e = -0.5
+    log2(e) maha < log2(ALPHA_SKIP / alpha) - CUTOFF_MARGIN. At that cutoff,
+    alpha' of the plain version (float32 torch.exp of -0.5 maha) is below
+    ALPHA_SKIP for alphas from the threshold to 1, and the pre-scale is
+    -0.5 log2(e)."""
+    margin = _cuh_constant("CUTOFF_MARGIN")
+    assert margin > 0
+    assert _cuh_constant("NEG_HALF_LOG2E") == float(np.float32(-0.5 / math.log(2.0)))
+    alpha = torch.cat([torch.linspace(blend.ALPHA_SKIP, 1.0, 100001),
+                       torch.tensor([blend.ALPHA_SKIP * 1.0001, 0.5, 0.99, 1.0])])
+    cut = math.log2(blend.ALPHA_SKIP) - torch.log2(alpha.double()) - margin  # on e
+    maha = (cut / (-0.5 / math.log(2.0))).float()  # the maha of e = cut
+    ap = alpha * torch.exp(-0.5 * torch.clamp(maha, min=0.0))
+    assert float(ap.max()) < blend.ALPHA_SKIP
+
+
+def _f32_prod(x, dim):
+    """torch.prod in float32, last entry first: an order in which the product
+    rounds apart from torch.cumprod's, fixed so that the test does not rest
+    on the order the installed torch's prod happens to take."""
+    out = x.select(dim, -1)
+    for i in range(x.shape[dim] - 2, -1, -1):
+        out = out * x.select(dim, i)
+    return out
+
+
+def test_stop_inside_a_chunk_carries_over(monkeypatch):
+    """A pixel whose transmittance falls below TAU_STOP inside a chunk leaves
+    the chunk below it, however the chunk's product rounds: otherwise a
+    later chunk contributes behind the entries this one excluded, which the
+    backward's replay (every live entry below contrib) cannot represent. The
+    chunk's 16 entries cover every pixel at alpha' = alpha; the 64 pixels
+    enter it with consecutive float32 transmittances that put the tenth
+    entry's on the threshold."""
+    rng = np.random.default_rng(3)
+    k, p = 16, 64
+    alpha = torch.from_numpy(rng.uniform(0.3, 0.6, k).astype(np.float32))
+    base = np.float32(1e-4 / float(torch.cumprod(1 - alpha, 0)[9]))
+    tau_in = torch.from_numpy((base + (np.arange(p) - p // 2) * np.spacing(base))
+                              .astype(np.float32))
+    zeros = torch.zeros(p)
+    chunk = (torch.zeros((k, 2)), torch.zeros((k, 3)), alpha, torch.rand((k, 3)),
+             torch.ones(k, dtype=torch.bool), zeros, zeros)
+    monkeypatch.setattr(torch, "prod", _f32_prod)
+    excl = torch.cumprod(torch.cat([torch.ones(1), 1 - alpha[:-1]]), 0)
+    tau_ex = tau_in[None] * excl[:, None]
+    stopped = (tau_ex < blend.TAU_STOP).any(0)
+    product = tau_in * _f32_prod(torch.where(tau_ex >= blend.TAU_STOP, 1 - alpha[:, None], 1.0), 0)
+    assert bool((stopped & (product >= blend.TAU_STOP)).any())  # the rounding this guards
+    _, tau_out, cont = blend.blend_chunk_fwd(tau_in, *chunk)
+    assert bool(stopped.all()) and float(tau_out.max()) < blend.TAU_STOP
+    _, _, cont_next = blend.blend_chunk_fwd(tau_out, *chunk)
+    assert int(cont_next.max()) == 0 and int(cont.min()) >= 9
+
+
+def test_chunk_stop_probe_resumes_no_pixel(monkeypatch):
+    """probes/chunk_stop.py on 16 tiles whose pixels stop within ulps of
+    1e-4 inside their first chunk: with the chunk's product in an order
+    that rounds apart from the cumulative one, the product exit lets the
+    second chunk take pixels again; the plain forward's stop exit takes
+    none, and its backward equals the kernels' wrappers' (on the CPU, the
+    same plain versions)."""
+    monkeypatch.setattr(torch, "prod", _f32_prod)
+    out = chunk_stop.run("cpu", n_tiles=16)
+    assert out["k4_stopped"] == out["pixels"] == 16 * 256
+    assert out["product"]["resumed"] > 0
+    assert out["stop"] == {"resumed": 0, "contrib_differs_from_k4": 0, "grad_err_of_max": 0.0}

@@ -16,6 +16,7 @@ from easygaussiansplatting_tpu.ops import stages as jax_stages
 from easygaussiansplatting_tpu.ops.binning import bin_gaussians as jax_bin
 from easygaussiansplatting_tpu.ops.pallas.rasterize import rasterize_pallas
 from easygaussiansplatting_tpu.ops.rasterize import render as jax_render
+from easygaussiansplatting_tpu_torch.data.fixtures import stacked_tile
 from easygaussiansplatting_tpu_torch.models.convert import camera_from_numpy
 from easygaussiansplatting_tpu_torch.ops.kernels import rasterize
 from easygaussiansplatting_tpu_torch.ops.kernels.preprocess import TABLE_COLS, pack_table
@@ -103,6 +104,41 @@ def test_table_cotangent_saturating_stack():
     got, want, b = _table_cotangent_both(_stack_scene(rng), JCAM, w, 8192)
     assert int(np.asarray(b["tile_cnt"]).max()) > K_CHUNK
     _assert_grads(got.T, want.T, ["ux", "uy", "ca", "cb", "cc", "alpha", "r", "g", "b"])
+
+
+@pytest.mark.parametrize("n", [63, 64, 65, 127, 128, 129, 255, 256, 257, 511, 512, 513])
+def test_plain_k5_matches_pallas_on_stacked_tile(n):
+    """K5's plain version on the stacked tile (lists at and around the
+    kernels' batch sizes, saturated and unsaturated pixels, alpha' on the
+    0.002 and 0.99 thresholds, dropped entries) against autodiff of the
+    interpreted Pallas rasteriser: entry j is gaussian j, so the [9, M]
+    per-patch rows are the table cotangent's first nine columns."""
+    f = stacked_tile(n)
+    w = np.random.default_rng(n).normal(size=(3, 16, 16)).astype(np.float32)
+    b = {k: jnp.asarray(f[k]) for k in ("patch_gsid", "tile_start", "tile_cnt")}
+    b["total"] = jnp.int32(n)
+    attrs = [jnp.asarray(f[k]) for k in ("us", "cinv2ds", "alphas", "colors")]
+    s = f["us"].shape[0]
+    jtable = jnp.concatenate([attrs[0], attrs[1], attrs[2][:, None], attrs[3],
+                              jnp.zeros((s, 7))], axis=1)
+
+    def loss(table):
+        img, _ = rasterize_pallas(*attrs, b, width=16, height=16, k_chunk=128, interpret=True,
+                                  table=table)
+        return jnp.sum(img * w)
+
+    want = np.asarray(jax.grad(loss)(jtable))[:, :9].T
+    t = {k: torch.from_numpy(v) for k, v in f.items()}
+    table = pack_table(t["us"], t["cinv2ds"], t["alphas"], t["colors"], torch.zeros(s),
+                       torch.zeros((s, 2)))
+    bins = (t["patch_gsid"], t["tile_start"], t["tile_cnt"])
+    _, tau, cont = rasterize.rasterize_fwd(table, *bins, width=16, height=16)
+    assert 0 < int((tau < 1e-4).sum()) < 256 and int(cont.max()) == n
+    got = rasterize.rasterize_bwd(table, *bins, torch.from_numpy(w), tau, cont, width=16,
+                                  height=16).numpy()
+    assert got.shape == (9, s)
+    assert np.abs(want).max() > 0 and np.all(got[:, f["patch_gsid"] < 0] == 0.0)
+    _assert_grads(got, want, ["ux", "uy", "ca", "cb", "cc", "alpha", "r", "g", "b"])
 
 
 def _render_grads_port(arrays, cam, w, deg, max_patches, alive=None):
