@@ -16,7 +16,12 @@ gaussians, SH degree 3, 979x546, max_patches 557,056, max_rows 229,376):
   started from the scene with perturbed opacities and colours, and 23 steps
   of ``make_train_step`` (3 warm, 20 timed) cycling the views; then one step
   held against the all-plain step, two kernel steps held bit-equal, and K2,
-  K5 and K6 each held against its plain version on the step's inputs;
+  K5 and K6 each held against its plain version on the step's inputs; K2
+  also prints its registers, shared memory, spills (none allowed) and
+  resident blocks an SM, and its time at the epoch driver's capacity; K6 its
+  plan (egs_segmented_cumsum_plan), whose kernel count one call's profile
+  must match, and two calls bit-equal on the step's rows and on rows with a
+  segment over four tiles;
 * the sort routes, from the trained state: one kernel step on view 0 under
   each of the JAX package's opt-in sort flags (K8 in binning and the
   reduce; K7 in the gsid_counts inversion and the reduce; K7 with the
@@ -179,7 +184,7 @@ K3_NAMES = ("scan_block_sums", "scan_block_offsets", "scan_apply")
 K4_NAMES = ("rasterize_fwd_kernel",)
 K2_NAMES = ("preprocess_bwd_kernel",)
 K5_NAMES = ("rasterize_bwd_kernel",)
-K6_NAMES = ("seg_block_sums", "seg_block_carries", "seg_scan_apply")
+K6_NAMES = ("seg_scan_kernel",)
 RENDER_GROUPS = (("K1", K1_NAMES), ("K3", K3_NAMES), ("K4", K4_NAMES))
 STEP_GROUPS = RENDER_GROUPS + (("K2", K2_NAMES), ("K5", K5_NAMES), ("K6", K6_NAMES))
 # each kernel's wrapper, whose launch count its path reads
@@ -785,6 +790,25 @@ def phase_k2(seen, flush, clock_mhz, n_sm):
     n = args[0].shape[0]
     n_par = 3 + SH_COLS + 1 + 3 + 4
     nbytes = n * 4 * (2 * n_par + preprocess.TABLE_COLS)  # params and cotangent in, grads out
+    deg = round((args[1].shape[1] // 3) ** 0.5) - 1
+    info = preprocess.bwd_kernel_info(deg)
+    blocks = -(-n // info["threads"])
+    lines.append(
+        f"K2 as compiled (SH degree {deg}): {info['registers']} registers a thread, "
+        f"{info['shared_bytes']} shared bytes a block of {info['threads']} threads, "
+        f"{info['local_bytes']} local (spill) bytes a thread, {info['blocks_per_sm']} resident "
+        f"blocks an SM; the step's {n} gaussians are {blocks} blocks, "
+        f"{blocks / (info['blocks_per_sm'] * n_sm):.2f} waves on {n_sm} SMs")
+    require(info["local_bytes"] == 0, f"K2 spills {info['local_bytes']} bytes a thread")
+    # the epoch driver runs K2 over its whole capacity: the step's inputs
+    # repeated up to DRIVER_CAPACITY gaussians
+    reps = DRIVER_CAPACITY // n
+    big = [torch.cat([a] * reps) for a in args[:6]]
+    ms_big = event_ms(lambda: preprocess.preprocess_bwd(*big, *args[6:], **kwargs), clock_mhz,
+                      flush=flush)
+    bound_big = bound(nbytes * reps, n * reps * 600, 0, clock_mhz, n_sm)["bound_ms"]
+    lines.append(f"K2 at the epoch driver's capacity, {n * reps} gaussians: {ms_big:.4f} ms "
+                 f"by CUDA events, bound {bound_big:.4f} ms by bytes")
     return {"name": "K2 preprocess_bwd", "route": "cuda",
             "source": "easygaussiansplatting_tpu_torch/csrc/preprocess_bwd.cu",
             "replaces": "easygaussiansplatting_tpu/ops/pallas/preprocess.py:180",
@@ -918,17 +942,44 @@ def phase_k5(seen, flush, clock_mhz, n_sm):
             "max_abs_err": worst, **timing, **k5_bound(nbytes, work, clock_mhz, n_sm)}, lines
 
 
-def phase_k6(seen, flush, clock_mhz, n_sm):
-    (svals, flags), _, _ = seen["segmented_cumsum"]
-    got = scan.segmented_cumsum(svals, flags)
+def k6_check(svals, flags, got):
+    """K6's result against its plain version: (max abs error, elements
+    beyond K6_RTOL of the running sum of |x|)."""
     want = scan.segmented_cumsum_plain(svals, flags)
     mag = scan.segmented_cumsum_plain(svals.abs(), flags)
     err = (got - want).abs()
-    n_bad = int((err > K6_RTOL * mag + 1e-12).sum())
-    worst = float(err.max())
+    return float(err.max()), int((err > K6_RTOL * mag + 1e-12).sum())
+
+
+def phase_k6(seen, flush, clock_mhz, n_sm):
+    (svals, flags), _, _ = seen["segmented_cumsum"]
+    got = scan.segmented_cumsum(svals, flags)
+    worst, n_bad = k6_check(svals, flags, got)
     lines = [f"K6 on the step's sorted rows {tuple(svals.shape)}, {int(flags.sum())} segments: "
              f"max_abs_err {worst:.3e}, beyond {K6_RTOL}*running|sum|: {n_bad}"]
     require(n_bad == 0, "K6 differs from its plain version beyond tolerance")
+    r, m = svals.shape
+    plan = scan.segmented_cumsum_plan(m, r)
+    kernels = require_kernel_count("K6 on the step's rows",
+                                   lambda: scan.segmented_cumsum(svals, flags), plan["launches"])
+    lines.append(f"K6 plan (egs_segmented_cumsum_plan): tiles of {plan['tile']} positions, "
+                 f"{-(-m // plan['tile'])} tiles, {plan['launches']} kernel launch(es) and "
+                 f"{plan['memsets']} memset a call, {plan['scratch']} scratch words; device "
+                 f"kernels per call {kernels}")
+    # bit-equal calls: on the step's rows, and with one segment from
+    # position `a` over more than three tiles
+    tile = plan["tile"]
+    a = tile // 2 + 7
+    long_flags = flags.clone()
+    long_flags[a] = 1
+    long_flags[a + 1:a + 3 * tile + 100] = 0
+    for label, f in (("the step's rows", flags), ("a segment over 4 tiles", long_flags)):
+        first = got if f is flags else scan.segmented_cumsum(svals, f)
+        equal = torch.equal(first, scan.segmented_cumsum(svals, f))
+        err, bad = k6_check(svals, f, first)
+        lines.append(f"K6 twice on {label}: bit-equal {equal}; max_abs_err {err:.3e}, beyond "
+                     f"{K6_RTOL}*running|sum|: {bad}")
+        require(equal and bad == 0, f"K6 on {label}: two calls differ or a value is off")
     # the yardstick for the whole reduce (sort, K6, gathers): one index_add_
     # of the same per-patch rows onto the gaussians; the port never calls it
     (table, gsid, *_), _, rows = seen["rasterize_bwd"]
@@ -939,7 +990,6 @@ def phase_k6(seen, flush, clock_mhz, n_sm):
                      lambda: scan.segmented_cumsum_plain(svals, flags), clock_mhz, flush,
                      library=lambda: torch.zeros((n + 1, 9), device=rows_t.device).index_add_(
                          0, idx, rows_t))
-    m = svals.shape[1]
     return {"name": "K6 segmented_cumsum", "route": "cuda",
             "source": "easygaussiansplatting_tpu_torch/csrc/seg_scan.cu",
             "replaces": "easygaussiansplatting_tpu/ops/pallas/scan.py:74",
@@ -1053,7 +1103,9 @@ def device_kernels(fn):
     device time in that call), or (None, "not traced") where the profiler
     records no device activity. A small flush kernel, which the count leaves
     out, runs first in the profile, so that the call's first kernel is not
-    the profile's first activity."""
+    the profile's first activity. Memsets (K6 clears its look-back words with
+    one) are device work but not kernels: the count leaves them out and the
+    text names them."""
     fn()
     torch.cuda.synchronize()
     marker = torch.zeros(256, dtype=torch.int32, device="cuda")
@@ -1070,7 +1122,8 @@ def device_kernels(fn):
     for e in events:
         n, us = by_name.get(short_name(e.name), (0, 0.0))
         by_name[short_name(e.name)] = (n + 1, us + e.time_range.elapsed_us())
-    return len(events), f"{len(events)}: " + ", ".join(
+    counted = sum(not e.name.startswith("Memset") for e in events)
+    return counted, f"{counted}: " + ", ".join(
         f"{name} x{n} {us:.1f} us" for name, (n, us) in by_name.items())
 
 

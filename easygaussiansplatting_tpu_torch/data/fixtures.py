@@ -108,3 +108,39 @@ def stacked_tile(n, seed=0):
             "colors": rng.uniform(0.0, 1.0, (s, 3)).astype(np.float32),
             "patch_gsid": gsid.astype(np.int32), "tile_start": np.zeros(1, np.int32),
             "tile_cnt": np.full(1, n, np.int32)}
+
+
+SEG_TILE = 1024  # positions a block of csrc/seg_scan.cu (its plan's tile)
+SEG_CASES = ("tile", "tile_minus_1", "tile_plus_1", "three_tile_segment", "startless_tile",
+             "tile_edges", "one_segment", "every_position")
+
+
+def segment_case(kind, rows=9, seed=0):
+    """Rows [rows, m] float32 and segment-start flags [m] int32 (element 0
+    flagged) at the edges of K6's tiles of SEG_TILE positions: m at the tile
+    and one off it (random starts); a segment over positions 100 to 4 tiles
+    + 50; a tile (the second of four) with no start; starts at every tile's
+    first and last positions; one segment over everything; a start at every
+    position."""
+    t = SEG_TILE
+    m = {"tile": t, "tile_minus_1": t - 1, "tile_plus_1": t + 1, "three_tile_segment": 5 * t + 4,
+         "startless_tile": 4 * t, "tile_edges": 3 * t + 17, "one_segment": 3 * t + 5,
+         "every_position": 2 * t + 2}[kind]
+    rng = np.random.default_rng(seed)
+    vals = rng.normal(size=(rows, m)).astype(np.float32)
+    flags = np.zeros(m, np.int32)
+    if kind in ("tile", "tile_minus_1", "tile_plus_1"):
+        flags[:] = rng.random(m) < 0.1
+    elif kind == "three_tile_segment":
+        flags[[100, 4 * t + 50, 4 * t + 51]] = 1
+    elif kind == "startless_tile":
+        flags[:] = rng.random(m) < 0.05
+        flags[t:2 * t] = 0
+    elif kind == "tile_edges":
+        edges = np.arange(0, m, t)
+        flags[edges] = 1
+        flags[np.minimum(edges + t - 1, m - 1)] = 1
+    elif kind == "every_position":
+        flags[:] = 1
+    flags[0] = 1
+    return vals, flags

@@ -149,7 +149,8 @@ def preprocess_bwd(pws, shs, alphas, scales, rots, dtable, cam, sh_degree=3):
     """K2 wrapper: the VJP of K1 from ``dtable`` [N, TABLE_COLS] (columns
     LIVE_COLS and up are ignored) to (d_pws, d_shs, d_alphas, d_scales,
     d_rots). CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    kernel, which reads and writes 16 bytes at a time: pws, shs, scales,
+    rots and dtable must be 16-byte aligned."""
     n = _check_params(pws, shs, alphas, scales, rots)
     n_bases = stages.sh_bases(shs.shape[1], sh_degree)
     if (dtable.dtype != torch.float32 or tuple(dtable.shape) != (n, TABLE_COLS)
@@ -161,6 +162,8 @@ def preprocess_bwd(pws, shs, alphas, scales, rots, dtable, cam, sh_degree=3):
         return preprocess_bwd_plain(pws, shs, alphas, scales, rots, dtable, cam, sh_degree)
     if pws.device.type != "cuda":
         raise ValueError(f"unsupported device {pws.device}")
+    if any(t.data_ptr() % 16 for t in (pws, shs, scales, rots, dtable)):
+        raise ValueError("pws, shs, scales, rots and dtable must be 16-byte aligned")
     grads = tuple(torch.empty_like(t) for t in (pws, shs, alphas, scales, rots))
     camv = (ctypes.c_float * CAM_LEN)(*camera_vector(cam))
     _build.check(_build.library().egs_preprocess_bwd(
@@ -173,6 +176,20 @@ def preprocess_bwd(pws, shs, alphas, scales, rots, dtable, cam, sh_degree=3):
 
 
 preprocess_bwd.launches = 0
+
+
+def bwd_kernel_info(sh_degree=3):
+    """What the compiled K2 kernel for ``sh_degree`` takes on the card:
+    {"registers": per thread, "shared_bytes": per block, "local_bytes": per
+    thread (spills), "blocks_per_sm": resident blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "threads": per block}.
+    Builds the kernels first if needed; needs the card."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.library().egs_preprocess_bwd_info((sh_degree + 1) ** 2,
+                                                          ctypes.addressof(out)),
+                 "egs_preprocess_bwd_info")
+    return dict(zip(("registers", "shared_bytes", "local_bytes", "blocks_per_sm", "threads"),
+                    out))
 
 
 class PreprocessFunction(torch.autograd.Function):

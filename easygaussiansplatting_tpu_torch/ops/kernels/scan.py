@@ -5,18 +5,21 @@ Port of easygaussiansplatting_tpu/ops/pallas/scan.py (``multi_cumsum``,
 its plain version is ``torch.cumsum`` along axis 1 with the input's dtype
 kept (torch would widen int32 to int64 unless told otherwise; the JAX ints
 stay int32). K6's kernel is ``csrc/seg_scan.cu``; its plain version is
-:func:`segmented_cumsum_plain`.
+:func:`segmented_cumsum_plain`. K6's plan (tile, launches, scratch) lives in
+C: :func:`segmented_cumsum_plan` asks it.
 
 Unlike the Pallas kernels, which need a length that is a multiple of their
 16,384-lane block, the CUDA kernels take any length.
 """
+
+import ctypes
 
 import torch
 
 from easygaussiansplatting_tpu_torch.ops.kernels import _build
 
 MAX_ROWS = 8
-TILE = 2048  # elements per block of csrc/scan.cu and csrc/seg_scan.cu (THREADS * ITEMS)
+TILE = 2048  # elements per block of csrc/scan.cu (THREADS * ITEMS)
 _ENTRY = {torch.int32: "egs_multi_cumsum_i32", torch.float32: "egs_multi_cumsum_f32"}
 
 
@@ -75,6 +78,17 @@ def segmented_cumsum_plain(vals, flags):
     return (c - (c - vals.double())[:, seg_start]).to(vals.dtype)
 
 
+def segmented_cumsum_plan(m, rows):
+    """csrc/seg_scan.cu's plan for a call on [rows, m]: {"tile": positions a
+    block, "launches": kernel launches (one a group of 16 rows), "memsets":
+    memsets of the scratch's counters and status words, "scratch": int32
+    words}. Asks the kernel library, so it needs the CUDA toolkit."""
+    out = [ctypes.c_longlong() for _ in range(4)]
+    _build.check(_build.library().egs_segmented_cumsum_plan(
+        m, rows, *(ctypes.byref(v) for v in out)), "egs_segmented_cumsum_plan")
+    return dict(zip(("tile", "launches", "memsets", "scratch"), (v.value for v in out)))
+
+
 def segmented_cumsum(vals, flags):
     """Inclusive segmented cumsum along axis 1 of an [R, M] float32 tensor
     (any R and M); ``flags`` [M] int32, nonzero where a segment starts
@@ -96,13 +110,12 @@ def segmented_cumsum(vals, flags):
     out = torch.empty_like(vals)
     if r == 0 or m == 0:
         return out
-    n_blocks = -(-m // TILE)
-    sums = torch.empty((r, n_blocks), dtype=torch.float32, device=vals.device)
-    bflags = torch.empty(n_blocks, dtype=torch.int32, device=vals.device)
+    # uninitialised: the C entry clears the part that needs it
+    scratch = torch.empty(segmented_cumsum_plan(m, r)["scratch"], dtype=torch.int32,
+                          device=vals.device)
     _build.check(_build.library().egs_segmented_cumsum_f32(
-        vals.data_ptr(), flags.data_ptr(), out.data_ptr(), sums.data_ptr(),
-        bflags.data_ptr(), r, m, n_blocks, _build.stream_ptr(vals)),
-        "egs_segmented_cumsum_f32")
+        vals.data_ptr(), flags.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), r, m, _build.stream_ptr(vals)), "egs_segmented_cumsum_f32")
     segmented_cumsum.launches += 1
     return out
 

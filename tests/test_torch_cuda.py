@@ -13,7 +13,12 @@ import pytest
 import torch
 
 from easygaussiansplatting_tpu_torch.data import example_camera
-from easygaussiansplatting_tpu_torch.data.fixtures import stacked_tile
+from easygaussiansplatting_tpu_torch.data.fixtures import (
+    SEG_CASES,
+    SEG_TILE,
+    segment_case,
+    stacked_tile,
+)
 from easygaussiansplatting_tpu_torch.data.synthetic import make_synthetic_scene
 from easygaussiansplatting_tpu_torch.models import Camera
 from easygaussiansplatting_tpu_torch.models.convert import gaussians_from_numpy
@@ -154,6 +159,116 @@ def test_segmented_scan_kernel_matches_plain(cuda, m):
     # float32 running sums in another order: 1e-5 of the running |sum|
     mag = scan.segmented_cumsum_plain(vals.abs(), flags)
     assert bool(((got - want).abs() <= 1e-5 * mag + 1e-6).all())
+
+
+K2_BLOCK = 128  # gaussians a block of csrc/preprocess_bwd.cu
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4, 5])
+@pytest.mark.parametrize("n", [1, K2_BLOCK - 1, K2_BLOCK + 1, 3001])
+def test_preprocess_bwd_kernel_at_block_edges(cuda, n, deg):
+    """N at and around the kernel's blocks (the last block partial), each
+    group within 1e-4 of its max|want| (float32 sums in another order than
+    autograd's), finite, and two calls bit-equal."""
+    t = gaussians_from_numpy(_scene(n, n, deg), cuda)
+    args = [t[k] for k in KEYS]
+    g = torch.Generator().manual_seed(n + deg)
+    dtable = torch.randn((n, preprocess.TABLE_COLS), generator=g).to(cuda)
+    got = _kernel_twice(preprocess.preprocess_bwd, *args, dtable, CAM, sh_degree=deg)
+    want = preprocess.preprocess_bwd_plain(*args, dtable, CAM, sh_degree=deg)
+    for a, b, name in zip(got, want, KEYS):
+        assert bool(torch.isfinite(a).all()), name
+        _close_to_scale(a, b, name, 1e-4)
+
+
+@pytest.mark.parametrize("deg", [0, 3, 5])
+def test_preprocess_bwd_kernel_zero_behind_the_camera(cuda, deg):
+    """tests/test_torch_preprocess_bwd.py's test_invalid_gaussians_get_zero_not_nan
+    on the card: a zero cotangent on the gaussians behind the camera gives
+    finite gradients everywhere and exact zeros there."""
+    s = _scene(8, 3001, deg)
+    s["pws"][:600, 2] = np.random.default_rng(8).uniform(-10.0, -8.0, size=600)
+    t = gaussians_from_numpy(s, cuda)
+    args = [t[k] for k in KEYS]
+    behind = preprocess.preprocess_plain(*args, CAM, sh_degree=deg)[:, 9] < 0.2
+    assert int(behind.sum()) >= 600
+    dtable = torch.randn((3001, preprocess.TABLE_COLS),
+                         generator=torch.Generator().manual_seed(8)).to(cuda)
+    dtable[behind] = 0.0
+    for grad in preprocess.preprocess_bwd(*args, dtable, CAM, sh_degree=deg):
+        assert bool(torch.isfinite(grad).all())
+        assert bool((grad[behind] == 0).all())
+
+
+def test_preprocess_bwd_kernel_needs_16_byte_alignment(cuda):
+    """The kernel moves 16 bytes at a time: a contiguous view that starts
+    4 bytes into its storage is refused."""
+    t = gaussians_from_numpy(_scene(9, 64, 3), cuda)
+    args = [t[k] for k in KEYS]
+    buf = torch.empty(64 * 48 + 1, device=cuda)[1:].view(64, 48)
+    buf.copy_(args[1])
+    dtable = torch.zeros((64, preprocess.TABLE_COLS), device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        preprocess.preprocess_bwd(args[0], buf, *args[2:], dtable, CAM, sh_degree=3)
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4, 5])
+def test_preprocess_bwd_kernel_info(cuda, deg):
+    """K2 spills nothing at any degree, and at degree 3 the step's 65,536
+    gaussians (512 blocks) fit on the card's SMs in one wave."""
+    info = preprocess.bwd_kernel_info(deg)
+    assert info["local_bytes"] == 0, info
+    assert info["threads"] == K2_BLOCK and info["blocks_per_sm"] >= 1, info
+    if deg == 3:
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        assert info["blocks_per_sm"] * n_sm * K2_BLOCK >= 65536, info
+
+
+@pytest.mark.parametrize("rows", [1, 9, 17])
+@pytest.mark.parametrize("kind", SEG_CASES)
+def test_segmented_scan_kernel_at_tile_edges(cuda, kind, rows):
+    """The edges of K6's tiles (data/fixtures.py::segment_case), kernel
+    against plain within 1e-5 of the running |sum|; two calls bit-equal
+    (the chained carry runs its adds in one order), also across the segment
+    over three tiles and past one launch's 16 rows."""
+    vals, flags = (torch.from_numpy(a) for a in segment_case(kind, rows=rows))
+    got = _kernel_twice(scan.segmented_cumsum, vals.to(cuda), flags.to(cuda))
+    want = scan.segmented_cumsum_plain(vals, flags)
+    mag = scan.segmented_cumsum_plain(vals.abs(), flags)
+    assert bool(((got.cpu() - want).abs() <= 1e-5 * mag + 1e-6).all())
+    if kind == "every_position":
+        assert torch.equal(got.cpu(), vals)
+
+
+@pytest.mark.parametrize("m,rows", [(1, 1), (SEG_TILE, 9), (SEG_TILE + 1, 9), (557056, 9),
+                                    (5000, 16), (5000, 17), (5000, 33)])
+def test_segmented_scan_plan(cuda, m, rows):
+    """egs_segmented_cumsum_plan: tiles of SEG_TILE positions, one launch a
+    group of 16 rows, one memset; scratch of a counter and a status word a
+    tile a group and two values a tile a row. The wrapper's call launches
+    that many kernels (profiled), and the C entry refuses one word less."""
+    plan = scan.segmented_cumsum_plan(m, rows)
+    tiles, groups = -(-m // SEG_TILE), -(-rows // 16)
+    assert plan == {"tile": SEG_TILE, "launches": groups, "memsets": 1,
+                    "scratch": groups * (1 + tiles) + 2 * tiles * rows}
+    vals = torch.randn((rows, m), device=cuda)
+    flags = torch.zeros(m, dtype=torch.int32, device=cuda)
+    scan.segmented_cumsum(vals, flags)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        scan.segmented_cumsum(vals, flags)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("seg_scan_kernel" in n for n in names) == groups, names
+    out = torch.empty_like(vals)
+    lib = scan._build.library()
+    for words, code_ok in ((plan["scratch"], True), (plan["scratch"] - 1, False)):
+        scratch = torch.empty(max(words, 1), dtype=torch.int32, device=cuda)
+        code = lib.egs_segmented_cumsum_f32(vals.data_ptr(), flags.data_ptr(), out.data_ptr(),
+                                            scratch.data_ptr(), words, rows, m,
+                                            torch.cuda.current_stream().cuda_stream)
+        assert (code == 0) == code_ok
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("stack", [False, True])

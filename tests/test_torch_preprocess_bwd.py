@@ -75,10 +75,13 @@ def _jax_stages_vjp(arrays, ct, deg):
             jax.grad(f, argnums=tuple(range(5)))(*(jnp.asarray(a) for a in arrays))]
 
 
-@pytest.mark.parametrize("deg", [0, 3])
-def test_vjp_matches_jax_fused_and_stages(rng, deg):
-    arrays = _pool(rng, 130, deg)
-    ct = rng.normal(size=(130, 9)).astype(np.float32)
+# N at and around the CUDA kernel's 128-gaussian blocks: 1, 127, 129, and
+# an odd few thousand, beside the original 130
+@pytest.mark.parametrize("deg,n", [(0, 130), (3, 130), (3, 1), (3, 127), (3, 129), (0, 3001),
+                                   (3, 3001)])
+def test_vjp_matches_jax_fused_and_stages(rng, deg, n):
+    arrays = _pool(rng, n, deg)
+    ct = rng.normal(size=(n, 9)).astype(np.float32)
     got = _port_vjp(arrays, ct, deg)
     fused = _jax_fused_vjp(arrays, ct, deg)
     ref = _jax_stages_vjp(arrays, ct, deg)

@@ -13,6 +13,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from easygaussiansplatting_tpu.ops.pallas import scan as jax_scan
 from easygaussiansplatting_tpu.ops.pallas.rasterize import _sort_reduce_grads
+from easygaussiansplatting_tpu_torch.data.fixtures import SEG_CASES, SEG_TILE, segment_case
 from easygaussiansplatting_tpu_torch.ops.kernels import scan
 from easygaussiansplatting_tpu_torch.ops.kernels.rasterize import sort_reduce_grads
 
@@ -133,6 +134,25 @@ def test_segmented_no_cross_segment_cancellation():
     flags = np.array([1, 0, 0, 1, 0, 0], np.int32)
     got = scan.segmented_cumsum(torch.from_numpy(vals), torch.from_numpy(flags))
     np.testing.assert_array_equal(got.numpy()[0, 3:], [1.0, 3.0, 6.0])
+
+
+@pytest.mark.parametrize("kind", SEG_CASES)
+def test_segmented_matches_jax_at_tile_edges(kind):
+    """The edges of the CUDA kernel's tiles of SEG_TILE positions (m at the
+    tile and one off it, a segment over three tiles, a tile with no start,
+    starts at tiles' first and last positions, one segment, a start at every
+    position) against JAX ``segmented_cumsum`` as it runs off the TPU (its
+    associative-scan reference). float32 sums in another order than the
+    float64 plain version: within 1e-5 of the running sum of |x|."""
+    vals, flags = segment_case(kind)
+    assert vals.shape[1] in range(SEG_TILE - 1, 6 * SEG_TILE)
+    want = np.asarray(jax_scan.segmented_cumsum(jnp.asarray(vals), jnp.asarray(flags)))
+    got = scan.segmented_cumsum(torch.from_numpy(vals), torch.from_numpy(flags)).numpy()
+    mag = scan.segmented_cumsum_plain(torch.from_numpy(np.abs(vals)),
+                                      torch.from_numpy(flags)).numpy()
+    assert np.all(np.abs(got - want) <= 1e-5 * mag + 1e-6)
+    if kind == "every_position":
+        np.testing.assert_array_equal(got, vals)
 
 
 @pytest.mark.parametrize("bad", ["int32", "dim", "flags_len", "flags_dtype"])
