@@ -8,7 +8,13 @@ gaussians, SH degree 3, 979x546, max_patches 557,056, max_rows 229,376):
 
 * the render path: a few renders through the port's entry point, checked
   against the all-plain path, then K1, K3 and K4 each held against its plain
-  PyTorch version on the render's inputs, and the render CLI once; K4 and
+  PyTorch version on the render's inputs, and the render CLI once; K1 also
+  prints its registers, shared memory, spills (none allowed at degree 3)
+  and resident blocks an SM at every SH degree, and its time at the epoch
+  driver's capacity; K3 its plan (egs_multi_cumsum_plan), whose kernel
+  count each call's profile must match, two float32 calls bit-equal, beside
+  torch.cumsum a second yardstick, a 1-D torch.cumsum a row, and its time
+  on rows far longer than binning's (2^21 and 2^24 positions); K4 and
   K5 also print the work this data needs (pairs, warp-iterations, K5's
   shuffles), their compiled inner loops (cuobjdump) and their registers
   and resident blocks an SM;
@@ -44,7 +50,10 @@ gaussians, SH degree 3, 979x546, max_patches 557,056, max_rows 229,376):
   (``verify_gradients``, 36 checks) in a subprocess.
 
 Each path's (or route's, or probe's) kernel launch counts are set to 0 just
-before it runs and read just after. Any failed check exits non-zero.
+before it runs and read just after. The render's, the step's and the
+driver's profiles must trace as many records of each port kernel as its
+wrapper launched in the window, or their device time and idle share are
+not taken. Any failed check exits non-zero.
 
 Output: per-phase lines, then the card's name and power limit as nvidia-smi
 gives them, then on its own line a JSON object {"kernels": [...]} (per
@@ -59,6 +68,7 @@ non-zero without a CUDA device. Imports nothing of JAX.
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -113,6 +123,8 @@ SEED = 0
 TRAIN_WARM, TRAIN_STEPS = 3, 20
 # the two-word (tile, slot) route: mp_bits 21, so (2,170 + 1) << 21 > 2^32
 LEX_MAX_PATCHES = 2_097_152
+# K3 also on rows far longer than binning's: [rows, m]
+LONG_SCANS = ((2, 2**21), (1, 2**24))
 DRIVER_EPOCHS, DRIVER_CAPACITY = 4, 131072
 
 # Published H100 SXM peaks (NVIDIA data sheet): device memory and FP32
@@ -180,7 +192,7 @@ K5_SHUFFLES = 12
 
 # device kernel names of each port kernel (csrc/)
 K1_NAMES = ("preprocess_fwd_kernel",)
-K3_NAMES = ("scan_block_sums", "scan_block_offsets", "scan_apply")
+K3_NAMES = ("multi_scan_kernel",)
 K4_NAMES = ("rasterize_fwd_kernel",)
 K2_NAMES = ("preprocess_bwd_kernel",)
 K5_NAMES = ("rasterize_bwd_kernel",)
@@ -350,15 +362,40 @@ def phase_k1(device, flush, clock_mhz, n_sm):
             timing = timings(lambda: preprocess.preprocess_fwd(*args, sh_degree=deg),
                              lambda: preprocess.preprocess_plain(*args, sh_degree=deg),
                              clock_mhz, flush)
-            n = p["pws"].shape[0]
-            nb = 3 * (deg + 1) ** 2
-            nbytes = n * 4 * (3 + nb + 1 + 3 + 4) + n * 4 * preprocess.TABLE_COLS
-            flops = n * (200 + 8 * (deg + 1) ** 2)  # stage math + SH basis and sums
-            timing.update(bound(nbytes, flops, 0, clock_mhz, n_sm))
+            timing.update(k1_bound(p["pws"].shape[0], deg, clock_mhz, n_sm))
+            # the epoch driver runs K1 over its whole capacity: the inputs
+            # repeated up to DRIVER_CAPACITY gaussians
+            reps = DRIVER_CAPACITY // N_GAUSSIANS
+            big = [torch.cat([a] * reps) for a in args[:5]]
+            ms_big = event_ms(lambda: preprocess.preprocess_fwd(*big, cam, sh_degree=deg),
+                              clock_mhz, flush=flush)
+            lines.append(f"K1 at the epoch driver's capacity, {DRIVER_CAPACITY} gaussians: "
+                         f"{ms_big:.4f} ms by CUDA events, bound "
+                         f"{k1_bound(DRIVER_CAPACITY, deg, clock_mhz, n_sm)['bound_ms']:.4f} ms "
+                         f"by bytes")
+    for deg in range(6):
+        info = preprocess.kernel_info("fwd", deg)
+        waves = [f"{-(-n // info['threads']) / (info['blocks_per_sm'] * n_sm):.2f}"
+                 for n in (N_GAUSSIANS, DRIVER_CAPACITY)]
+        lines.append(
+            f"K1 as compiled (SH degree {deg}): {info['registers']} registers a thread, "
+            f"{info['shared_bytes']} shared bytes a block of {info['threads']} threads, "
+            f"{info['local_bytes']} local (spill) bytes a thread, {info['blocks_per_sm']} "
+            f"resident blocks an SM; {waves[0]} waves at {N_GAUSSIANS} gaussians, {waves[1]} at "
+            f"{DRIVER_CAPACITY}")
+        if deg == 3:
+            require(info["local_bytes"] == 0, f"K1 spills {info['local_bytes']} bytes a thread")
     return {"name": "K1 preprocess_fwd", "route": "cuda",
             "source": "easygaussiansplatting_tpu_torch/csrc/preprocess.cu",
             "replaces": "easygaussiansplatting_tpu/ops/pallas/preprocess.py:170",
             "max_abs_err": worst, **timing}, lines
+
+
+def k1_bound(n, deg, clock_mhz, n_sm):
+    """K1's bound for n gaussians: the parameters read once, the table
+    written once; stage math and the SH basis and sums counted."""
+    nbytes = n * 4 * (3 + 3 * (deg + 1) ** 2 + 1 + 3 + 4) + n * 4 * preprocess.TABLE_COLS
+    return bound(nbytes, n * (200 + 8 * (deg + 1) ** 2), 0, clock_mhz, n_sm)
 
 
 def bound(nbytes, fp32_ops, exps, clock_mhz, n_sm, int_ops=0):
@@ -372,8 +409,10 @@ def bound(nbytes, fp32_ops, exps, clock_mhz, n_sm, int_ops=0):
 def phase_k3(device, flush, clock_mhz, n_sm):
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     # the three row sets one render scans at the bench budgets, sparse marks
-    # like binning's, plus one float32 set
-    shapes = [(2, MAX_ROWS), (1, MAX_ROWS), (2, MAX_PATCHES)]
+    # like binning's; one row set a position longer, whose row 1 starts 4
+    # bytes past a 16-byte boundary (the kernel's striped 4-byte path); and
+    # one float32 set
+    shapes = [(2, MAX_ROWS), (1, MAX_ROWS), (2, MAX_PATCHES), (2, MAX_ROWS + 1)]
     sets = []
     for r, m in shapes:
         x = torch.randint(-3, 4, (r, m), generator=gen, dtype=torch.int32)
@@ -381,6 +420,15 @@ def phase_k3(device, flush, clock_mhz, n_sm):
         sets.append(x.to(device))
     xf = torch.rand((2, MAX_PATCHES), generator=gen).to(device)
     lines = []
+    for x in sets + [xf]:
+        r, m = x.shape
+        plan = scan.multi_cumsum_plan(m, r)
+        kernels = require_kernel_count(f"K3 on {tuple(x.shape)}", lambda x=x: scan.multi_cumsum(x),
+                                       plan["launches"])
+        lines.append(f"K3 plan (egs_multi_cumsum_plan) for {tuple(x.shape)}: tiles of "
+                     f"{plan['tile']} positions, {r * -(-m // plan['tile'])} tiles, "
+                     f"{plan['launches']} kernel launch and {plan['memsets']} memset a call, "
+                     f"{plan['scratch']} scratch words; device kernels per call {kernels}")
     for x in sets:
         got = scan.multi_cumsum(x)
         want = scan.multi_cumsum_plain(x)
@@ -394,19 +442,44 @@ def phase_k3(device, flush, clock_mhz, n_sm):
     err = (got.double() - want.double()).abs()
     worst = float(err.max())
     n_bad = int((err > K3_F32_RTOL * cumabs).sum())
+    equal = torch.equal(got, scan.multi_cumsum(xf))
     lines.append(f"K3 f32 {tuple(xf.shape)}: max_abs_err vs the plain version {worst:.3e}, "
                  f"beyond {K3_F32_RTOL}*cumsum|x|: {n_bad}; against float64 the kernel is off by "
                  f"{float((got.double() - ref).abs().max()):.3e}, torch.cumsum by "
-                 f"{float((want.double() - ref).abs().max()):.3e}")
+                 f"{float((want.double() - ref).abs().max()):.3e}; two calls bit-equal: {equal}")
     require(n_bad == 0, "K3 f32 differs beyond tolerance")
-    # one render's three calls: the times add up
-    timing = {}
-    for x in sets:
+    require(equal, "K3 f32: two calls differ")
+    # one render's three calls: the times add up. The second yardstick:
+    # torch.cumsum of each row as a 1-D tensor (CUB's device scan), R calls
+    # a set; torch.cumsum(x, dim=1) hands a whole row to one block.
+    timing, rows_ms = {}, 0.0
+    for x in sets[:3]:
         t = timings(lambda x=x: scan.multi_cumsum(x), lambda x=x: scan.multi_cumsum_plain(x),
                     clock_mhz, flush, plain_iters=20,
                     library=lambda x=x: torch.cumsum(x, dim=1, dtype=torch.int32))
         timing = {k: timing.get(k, 0.0) + v for k, v in t.items()}
-    elems = sum(x.numel() for x in sets)
+        rows = list(x)
+        rows_ms += event_ms(lambda rows=rows: [torch.cumsum(v, 0, dtype=torch.int32) for v in rows],
+                            clock_mhz, flush=flush)
+    _, row_kernels = device_kernels(lambda: torch.cumsum(sets[2][0], 0, dtype=torch.int32))
+    lines.append(f"K3 yardstick, torch.cumsum of each row as a 1-D tensor (5 calls a render): "
+                 f"{rows_ms:.4f} ms a render by CUDA events; device kernels of one such call "
+                 f"{row_kernels}")
+    # rows far longer than binning's (512 and 4,096 tiles): the carry reads
+    # every earlier tile's aggregate, tiles^2 / 2 words a row, beside the
+    # bytes; its time is held beside CUB's
+    for r, m in LONG_SCANS:
+        x = torch.randint(-3, 4, (r, m), generator=gen, dtype=torch.int32).to(device)
+        require(torch.equal(scan.multi_cumsum(x), scan.multi_cumsum_plain(x)),
+                f"K3 int32 {(r, m)} differs")
+        ms = event_ms(lambda x=x: scan.multi_cumsum(x), clock_mhz, flush=flush)
+        cub = event_ms(lambda x=x: [torch.cumsum(v, 0, dtype=torch.int32) for v in x],
+                       clock_mhz, flush=flush)
+        lines.append(f"K3 int32 {(r, m)}: equal to the plain version; {ms:.4f} ms by CUDA "
+                     f"events, a 1-D torch.cumsum a row {cub:.4f} ms, bound "
+                     f"{bound(8 * r * m, 0, 0, clock_mhz, n_sm, int_ops=r * m)['bound_ms']:.4f} "
+                     f"ms by bytes")
+    elems = sum(x.numel() for x in sets[:3])
     return {"name": "K3 multi_cumsum", "route": "cuda",
             "source": "easygaussiansplatting_tpu_torch/csrc/scan.cu",
             "replaces": "easygaussiansplatting_tpu/ops/pallas/scan.py:33",
@@ -423,11 +496,15 @@ def k4_walk(tile_cnt, final_tau, contrib):
     return torch.where(final_tau < 1e-4, contrib.long(), tile_cnt.long()[ty * gx + tx])
 
 
+@functools.cache
 def sass_loop(kernel):
     """The compiled inner loop of a blend kernel, read from the built
     library with cuobjdump: (SASS instructions in the smallest loop that
     holds an ex2, its SHFL count), or None where cuobjdump is missing. The
-    loop is one warp-iteration of K4, one (entry, warp) step of K5."""
+    loop is one warp-iteration of K4, one (entry, warp) step of K5. main()
+    reads both before the first profile: a cuobjdump run after a
+    torch.profiler window makes every later window lose its first device
+    record (probes/profiler_records.py)."""
     tool = Path(_build.nvcc_path()).with_name("cuobjdump")
     if not tool.exists():
         return None
@@ -566,28 +643,53 @@ def render_wall(render_once, samples=50, warmup=2):
     return float(med), f"median {med:.3f} ms, p80 {p80:.3f} ms over {samples} renders"
 
 
+PROFILE_TRIES = 3
+
+
 def phase_profile(label, run_once, wall_ms, groups, reps=5, again=True):
     """Where the device time of one run goes (a profiled window of ``reps``
     runs), its idle share against the unprofiled median wall time, and, with
     ``again``, a second set of wall-time samples taken after the window.
-    Returns (device ms per run or None, lines)."""
+    Each port kernel of ``groups`` launches one device kernel a call here
+    (its plan), so its records in the window must number its wrapper's
+    launches there. A window that lost a record is taken again, up to
+    PROFILE_TRIES windows; where every one lost one, the line says so and
+    gives no device time and no idle share. Returns (device ms per run or
+    None, lines)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            run_once()
-            torch.cuda.synchronize()
+    wrappers = {k: next(w for n, w in WRAPPERS.items() if n.split()[0] == k) for k, _ in groups}
+    lost = []
+    for _ in range(PROFILE_TRIES):
+        before = {k: w.launches for k, w in wrappers.items()}
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                run_once()
+                torch.cuda.synchronize()
+        events = _kernel_events(prof)
+        if not events:  # a profiler that traces no device leaves the run unbroken-down
+            return None, [f"{label} profile: torch.profiler recorded no device kernels"]
+        launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+        records = {k: sum(short_name(e.name) in names for e in events) for k, names in groups}
+        if records == launched:
+            break
+        lost.append(", ".join(f"{k} {records[k]} of {launched[k]}" for k, _ in groups
+                              if records[k] != launched[k]))
+    else:
+        return None, [f"{label} profile: every one of {PROFILE_TRIES} windows lost device "
+                      f"records (port kernel records of launches: {'; '.join(lost)}); no device "
+                      f"time or idle share taken"]
     by_name = {}
-    for e in _kernel_events(prof):
+    for e in events:
         name = short_name(e.name)
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
-    if not by_name:  # a profiler that traces no device leaves the run unbroken-down
-        return None, [f"{label} profile: torch.profiler recorded no device kernels"]
     busy = sum(by_name.values())
     ours = {k: sum(v for n, v in by_name.items() if n in names) for k, names in groups}
     lines = [f"{label} device time {busy:.4f} ms per {label} ({len(by_name)} kernel names); "
              f"idle share of the {wall_ms:.3f} ms {label} {1 - busy / wall_ms:.3f}; port kernels "
              + ", ".join(f"{k} {v:.4f} ms" for k, v in ours.items())
-             + f"; other kernels {busy - sum(ours.values()):.4f} ms"]
+             + f"; other kernels {busy - sum(ours.values()):.4f} ms; every port kernel's "
+             f"records equal its launches ({reps} {label}s)"
+             + (f", after {len(lost)} window(s) that lost some ({'; '.join(lost)})" if lost else "")]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     lines.append(f"{label} top device kernels: " + "; ".join(f"{n} {v:.4f} ms" for n, v in top))
     if again:
@@ -791,7 +893,7 @@ def phase_k2(seen, flush, clock_mhz, n_sm):
     n_par = 3 + SH_COLS + 1 + 3 + 4
     nbytes = n * 4 * (2 * n_par + preprocess.TABLE_COLS)  # params and cotangent in, grads out
     deg = round((args[1].shape[1] // 3) ** 0.5) - 1
-    info = preprocess.bwd_kernel_info(deg)
+    info = preprocess.kernel_info("bwd", deg)
     blocks = -(-n // info["threads"])
     lines.append(
         f"K2 as compiled (SH degree {deg}): {info['registers']} registers a thread, "
@@ -1103,9 +1205,9 @@ def device_kernels(fn):
     device time in that call), or (None, "not traced") where the profiler
     records no device activity. A small flush kernel, which the count leaves
     out, runs first in the profile, so that the call's first kernel is not
-    the profile's first activity. Memsets (K6 clears its look-back words with
-    one) are device work but not kernels: the count leaves them out and the
-    text names them."""
+    the profile's first activity. Memsets (K3 and K6 clear their look-back
+    words with one) are device work but not kernels: the count leaves them
+    out and the text names them."""
     fn()
     torch.cuda.synchronize()
     marker = torch.zeros(256, dtype=torch.int32, device="cuda")
@@ -1629,6 +1731,8 @@ def main():
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    for kernel in ("rasterize_fwd_kernel", "rasterize_bwd_kernel"):
+        sass_loop(kernel)
 
     launches, lines, (render_once, wall_ms) = phase_slice(device)
     for line in lines:

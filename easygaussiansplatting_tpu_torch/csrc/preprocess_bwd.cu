@@ -54,17 +54,9 @@
 #include <cuda_runtime.h>
 #include <string.h>
 
-#include "async_copy.cuh"
+#include "preprocess_rows.cuh"
 
 namespace {
-
-constexpr int TABLE_COLS = 12;
-constexpr float MIN_DEPTH = 0.2f;
-
-struct PreParams {
-  float cam[21];  // Rcw (9, row-major) tcw (3) twc (3) fx fy cx cy limx limy
-  float shc[36];  // SH constants in basis order (utils/sh.py SH_CONSTS)
-};
 
 // A value and its partials along (x, y, z).
 struct Dual {
@@ -88,47 +80,11 @@ __device__ __forceinline__ Dual operator*(float s, Dual a) {
 __device__ __forceinline__ Dual operator+(Dual a, float s) { return Dual(a.v + s, a.dx, a.dy, a.dz); }
 __device__ __forceinline__ Dual operator-(Dual a, float s) { return Dual(a.v - s, a.dx, a.dy, a.dz); }
 
-constexpr int B = 128;  // gaussians (threads) a block
-
-// SH floats a gaussian and their row stride in shared memory: an odd number
-// of float4s where the width is a multiple of 4 (read as float4s), the odd
-// width itself otherwise (read as floats); either way a warp's reads of its
-// rows are free of bank conflicts.
-template <int DEG>
-struct ShRow {
-  static constexpr int NB = (DEG + 1) * (DEG + 1);
-  static constexpr int W = 3 * NB;
-  static constexpr int SW = (W % 4 == 0 && (W / 4) % 2 == 0) ? W + 4 : W;
-};
-
 // The block's dynamic shared memory in floats: SH rows, cotangent rows,
 // positions, scales, colour cotangents (padded to 4).
 template <int DEG>
 constexpr int smem_floats() {
   return B * (ShRow<DEG>::SW + TABLE_COLS + 3 + 3 + 4);
-}
-
-// count floats of a block's contiguous, 16-byte aligned slice src -> dst,
-// flat element q to dst[(q / W) * SW + q % W], by 16-byte cp.async (W % 4
-// == 0 or SW == W, so no 16-byte chunk straddles two rows); the last block's
-// ragged tail by floats.
-template <int W, int SW>
-__device__ __forceinline__ void stage(float* dst, const float* src, int count) {
-  static_assert(SW == W || W % 4 == 0, "padded rows must hold whole float4s");
-  for (int q4 = threadIdx.x; q4 < count / 4; q4 += B) {
-    const int e = 4 * q4;
-    cp_async16(dst + (e / W) * SW + e % W, src + e);
-  }
-  for (int q = (count & ~3) + threadIdx.x; q < count; q += B)
-    dst[(q / W) * SW + q % W] = src[q];
-}
-
-// count floats from shared memory to a block's contiguous, 16-byte aligned
-// slice of dst, by 16-byte stores.
-__device__ __forceinline__ void unstage(float* dst, const float* src, int count) {
-  for (int q4 = threadIdx.x; q4 < count / 4; q4 += B)
-    reinterpret_cast<float4*>(dst)[q4] = reinterpret_cast<const float4*>(src)[q4];
-  for (int q = (count & ~3) + threadIdx.x; q < count; q += B) dst[q] = src[q];
 }
 
 // Real SH basis, degrees 0..DEG, as utils/sh.py sh_basis writes it (and
@@ -473,8 +429,6 @@ bool kernel_for(int n_bases, const void** fn, size_t* smem) {
   return true;
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15u) == 0; }
-
 }  // namespace
 
 // Parameters as egs_preprocess_fwd takes them; dtable [N,12] float32 device;
@@ -495,9 +449,9 @@ extern "C" int egs_preprocess_bwd(const float* pws, const float* shs,
   size_t smem;
   if (!kernel_for(n_bases, &fn, &smem)) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  if (!(aligned16(pws) && aligned16(shs) && aligned16(scales) && aligned16(rots) &&
-        aligned16(dtable) && aligned16(d_pws) && aligned16(d_shs) && aligned16(d_scales) &&
-        aligned16(d_rots)))
+  if (!(aligned(pws, 16) && aligned(shs, 16) && aligned(scales, 16) && aligned(rots, 16) &&
+        aligned(dtable, 16) && aligned(d_pws, 16) && aligned(d_shs, 16) &&
+        aligned(d_scales, 16) && aligned(d_rots, 16)))
     return static_cast<int>(cudaErrorMisalignedAddress);
   void* args[] = {&p,     (void*)&pws,   (void*)&shs,      (void*)&scales, (void*)&rots,
                   (void*)&dtable, (void*)&d_pws, (void*)&d_shs, (void*)&d_alphas,

@@ -47,6 +47,7 @@
 #include <cuda_runtime.h>
 
 #include "columns.cuh"
+#include "memory_order.cuh"
 
 namespace {
 
@@ -104,18 +105,6 @@ __device__ __forceinline__ int digit_of(int key, int shift, int last, int n_buck
   const int d = key >> shift;
   if (!last) return d & (RADIX - 1);
   return min(max(d, 0), n_buckets - 1);
-}
-
-// relaxed, so that a look-back step's loads are all in flight at once; a
-// fence after the look-back gives them acquire order
-__device__ __forceinline__ unsigned load_relaxed(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
 // Exclusive scan of x across the THREADS threads of the block (every thread
@@ -283,7 +272,9 @@ radix_scatter(const int* __restrict__ keys_in, const int* __restrict__ idx_in,
   // decoupled look-back: add earlier tiles' counts of digit d, LOOKBACK
   // tiles a step, up to the nearest that has published its inclusive
   // prefix (tile 0 does so at once); a step that meets a tile not yet
-  // published resumes there
+  // published resumes there. The loads are relaxed, so that a step's
+  // loads are all in flight at once; the fence after the look-back gives
+  // them acquire order
   if (tile > 0) {
     const unsigned* words = lookback + (long long)pass * plan.n_tiles * RADIX + d;
     for (long long k = tile - 1;;) {

@@ -52,6 +52,7 @@
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
+#include "memory_order.cuh"
 
 namespace {
 
@@ -63,22 +64,6 @@ constexpr int LOOKBACK = 32;       // earlier tiles a look-back step reads at on
 constexpr unsigned FULL = 0xffffffffu;
 constexpr unsigned ST_AGGREGATE = 1u;  // the tile's aggregate is published
 constexpr unsigned ST_INCLUSIVE = 2u;  // the tile's inclusive value is published
-
-__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ float load_relaxed(const float* p) {
-  float v;
-  asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];" : "=f"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
 
 // One launch over `rows` (<= GROUP_ROWS) rows of length m. VEC: m % 4 == 0
 // and x, y, flags 16-byte aligned. counter and status [n_tiles] start at 0;
@@ -293,8 +278,6 @@ Plan make_plan(long long m, int rows) {
   return p;
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<unsigned long long>(p) & 15u) == 0; }
-
 }  // namespace
 
 // x, y: [rows, m] float32 contiguous device arrays; flags [m] int32 (nonzero
@@ -320,7 +303,7 @@ extern "C" int egs_segmented_cumsum_f32(const float* x, const int* flags, float*
     if (e != cudaSuccess) return (int)e;
     attributes_set = true;
   }
-  const bool vec = m % 4 == 0 && aligned16(x) && aligned16(y) && aligned16(flags);
+  const bool vec = m % 4 == 0 && aligned(x, 16) && aligned(y, 16) && aligned(flags, 16);
   unsigned* head = reinterpret_cast<unsigned*>(scratch);
   float* vals = reinterpret_cast<float*>(scratch + plan.head_words);
   cudaError_t e = cudaMemsetAsync(head, 0, plan.head_words * sizeof(unsigned), s);

@@ -144,3 +144,49 @@ def segment_case(kind, rows=9, seed=0):
         flags[:] = 1
     flags[0] = 1
     return vals, flags
+
+
+SCAN_TILE = 4096  # positions a block of csrc/scan.cu (its plan's tile)
+SCAN_CASES = ("tile", "tile_minus_1", "tile_plus_1", "many_tiles", "wrap", "unaligned")
+
+
+def scan_case(kind, rows=2, dtype=np.int32, seed=0):
+    """Rows [rows, m] of int32 or float32 at the edges of K3's tiles of
+    SCAN_TILE positions: m at the tile and one off it; m over three tiles
+    and a part; int32 values near 2^20, whose sums wrap past 2^31 within
+    the first tile and across the tile boundaries after it; and m = 2 tiles
+    + 2, so that row 1 starts 8 bytes past a 16-byte boundary (m % 4 != 0:
+    the kernel's striped 4-byte path)."""
+    t = SCAN_TILE
+    m = {"tile": t, "tile_minus_1": t - 1, "tile_plus_1": t + 1, "many_tiles": 3 * t + 17,
+         "wrap": 2 * t + 5, "unaligned": 2 * t + 2}[kind]
+    rng = np.random.default_rng(seed)
+    if kind == "wrap":
+        if dtype != np.int32:
+            raise ValueError("the wrap case is int32")
+        return rng.integers(2**19, 2**21, size=(rows, m)).astype(np.int32)
+    if dtype == np.int32:
+        return rng.integers(-50, 50, size=(rows, m)).astype(np.int32)
+    return rng.normal(size=(rows, m)).astype(np.float32)
+
+
+PRE_BLOCK = 128  # gaussians a block of csrc/preprocess.cu and csrc/preprocess_bwd.cu
+PRE_EDGES = (PRE_BLOCK - 1, PRE_BLOCK, PRE_BLOCK + 1, 2 * PRE_BLOCK - 1, 2 * PRE_BLOCK + 1)
+
+
+def preprocess_case(n, deg, seed=0):
+    """n random gaussians with SH degree ``deg`` in front of and around
+    example_camera(), a fifth of them behind it (camera depth below 0.2),
+    as float32 arrays pws [n,3], shs [n, 3(deg+1)^2], alphas [n], scales
+    [n,3], rots [n,4] (unit quaternions): K1's block edges at n =
+    PRE_EDGES."""
+    rng = np.random.default_rng(seed)
+    pws = rng.normal(size=(n, 3)) * np.array([1.5, 1.0, 1.5])
+    # the camera sits near z = -3.8 looking along +z
+    pws[: n // 5, 2] = rng.uniform(-10.0, -8.0, size=n // 5)
+    rots = rng.normal(size=(n, 4))
+    rots /= np.linalg.norm(rots, axis=1, keepdims=True)
+    arrays = {"pws": pws, "shs": rng.normal(size=(n, 3 * (deg + 1) ** 2)) * 0.5,
+              "alphas": 1 / (1 + np.exp(-rng.normal(size=n))),
+              "scales": np.exp(rng.normal(size=(n, 3)) * 0.4 - 2.2), "rots": rots}
+    return {k: v.astype(np.float32) for k, v in arrays.items()}

@@ -44,13 +44,16 @@ _PL = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     "egs_preprocess_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "egs_preprocess_bwd": [_P] * 13 + [_I, _I, _P],
-    # K2's registers, shared bytes, local (spill) bytes, resident blocks an
-    # SM and threads a block for a basis count, to five ints
+    # K1's and K2's registers, shared bytes, local (spill) bytes, resident
+    # blocks an SM and threads a block for a basis count, to five ints
+    "egs_preprocess_fwd_info": [_I, _P],
     "egs_preprocess_bwd_info": [_I, _P],
-    "egs_multi_cumsum_i32": [_P, _P, _P, _I, _L, _I, _P],
-    "egs_multi_cumsum_f32": [_P, _P, _P, _I, _L, _I, _P],
+    # K3 and K6 take uninitialised scratch with its length in int32 words
+    "egs_multi_cumsum_i32": [_P, _P, _P, _L, _I, _L, _P],
+    "egs_multi_cumsum_f32": [_P, _P, _P, _L, _I, _L, _P],
     "egs_segmented_cumsum_f32": [_P, _P, _P, _P, _L, _I, _L, _P],
-    # its plan: tile, launches, memsets and scratch words, to four int64s
+    # their plans: tile, launches, memsets and scratch words, to four int64s
+    "egs_multi_cumsum_plan": [_L, _I, _PL, _PL, _PL, _PL],
     "egs_segmented_cumsum_plan": [_L, _I, _PL, _PL, _PL, _PL],
     "egs_rasterize_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "egs_rasterize_bwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],

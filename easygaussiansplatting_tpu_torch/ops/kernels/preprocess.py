@@ -78,13 +78,17 @@ def _check_params(pws, shs, alphas, scales, rots):
 def preprocess_fwd(pws, shs, alphas, scales, rots, cam, sh_degree=3):
     """K1 wrapper: float32 contiguous parameters -> [N, TABLE_COLS] table.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which reads 16 bytes at a time: every parameter must be 16-byte
+    aligned."""
     n = _check_params(pws, shs, alphas, scales, rots)
     n_bases = stages.sh_bases(shs.shape[1], sh_degree)
     if pws.device.type == "cpu":
         return preprocess_plain(pws, shs, alphas, scales, rots, cam, sh_degree)
     if pws.device.type != "cuda":
         raise ValueError(f"unsupported device {pws.device}")
+    if any(t.data_ptr() % 16 for t in (pws, shs, alphas, scales, rots)):
+        raise ValueError("pws, shs, alphas, scales and rots must be 16-byte aligned")
     out = torch.empty((n, TABLE_COLS), dtype=torch.float32, device=pws.device)
     camv = (ctypes.c_float * CAM_LEN)(*camera_vector(cam))
     lib = _build.library()
@@ -178,16 +182,17 @@ def preprocess_bwd(pws, shs, alphas, scales, rots, dtable, cam, sh_degree=3):
 preprocess_bwd.launches = 0
 
 
-def bwd_kernel_info(sh_degree=3):
-    """What the compiled K2 kernel for ``sh_degree`` takes on the card:
-    {"registers": per thread, "shared_bytes": per block, "local_bytes": per
-    thread (spills), "blocks_per_sm": resident blocks an SM
+def kernel_info(kernel, sh_degree=3):
+    """What the compiled K1 (``kernel`` "fwd") or K2 ("bwd") kernel for
+    ``sh_degree`` takes on the card: {"registers": per thread,
+    "shared_bytes": per block, "local_bytes": per thread (spills),
+    "blocks_per_sm": resident blocks an SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "threads": per block}.
     Builds the kernels first if needed; needs the card."""
+    entry = {"fwd": "egs_preprocess_fwd_info", "bwd": "egs_preprocess_bwd_info"}[kernel]
     out = (ctypes.c_int * 5)()
-    _build.check(_build.library().egs_preprocess_bwd_info((sh_degree + 1) ** 2,
-                                                          ctypes.addressof(out)),
-                 "egs_preprocess_bwd_info")
+    _build.check(getattr(_build.library(), entry)((sh_degree + 1) ** 2, ctypes.addressof(out)),
+                 entry)
     return dict(zip(("registers", "shared_bytes", "local_bytes", "blocks_per_sm", "threads"),
                     out))
 

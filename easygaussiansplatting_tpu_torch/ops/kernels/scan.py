@@ -5,8 +5,9 @@ Port of easygaussiansplatting_tpu/ops/pallas/scan.py (``multi_cumsum``,
 its plain version is ``torch.cumsum`` along axis 1 with the input's dtype
 kept (torch would widen int32 to int64 unless told otherwise; the JAX ints
 stay int32). K6's kernel is ``csrc/seg_scan.cu``; its plain version is
-:func:`segmented_cumsum_plain`. K6's plan (tile, launches, scratch) lives in
-C: :func:`segmented_cumsum_plan` asks it.
+:func:`segmented_cumsum_plain`. Each kernel's plan (tile, launches,
+scratch) lives in C: :func:`multi_cumsum_plan` and
+:func:`segmented_cumsum_plan` ask it.
 
 Unlike the Pallas kernels, which need a length that is a multiple of their
 16,384-lane block, the CUDA kernels take any length.
@@ -19,7 +20,6 @@ import torch
 from easygaussiansplatting_tpu_torch.ops.kernels import _build
 
 MAX_ROWS = 8
-TILE = 2048  # elements per block of csrc/scan.cu (THREADS * ITEMS)
 _ENTRY = {torch.int32: "egs_multi_cumsum_i32", torch.float32: "egs_multi_cumsum_f32"}
 
 
@@ -28,10 +28,26 @@ def multi_cumsum_plain(rows):
     return torch.cumsum(rows, dim=1, dtype=rows.dtype)
 
 
+def _plan(entry, m, rows):
+    out = [ctypes.c_longlong() for _ in range(4)]
+    _build.check(getattr(_build.library(), entry)(m, rows, *(ctypes.byref(v) for v in out)),
+                 entry)
+    return dict(zip(("tile", "launches", "memsets", "scratch"), (v.value for v in out)))
+
+
+def multi_cumsum_plan(m, rows):
+    """csrc/scan.cu's plan for a call on [rows, m]: {"tile": positions a
+    block (of one row), "launches": kernel launches (one), "memsets":
+    memsets of the tile counter and status words (one), "scratch": int32
+    words}. Asks the kernel library, so it needs the CUDA toolkit."""
+    return _plan("egs_multi_cumsum_plan", m, rows)
+
+
 def multi_cumsum(rows):
     """Inclusive cumsum along axis 1 of an [R, M] int32/float32 tensor
     (R <= 8, any M). CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    launch the kernel (one launch after one memset, as
+    :func:`multi_cumsum_plan` gives)."""
     if rows.dtype not in _ENTRY:
         raise TypeError(f"multi_cumsum takes int32 or float32, got {rows.dtype}")
     if rows.dim() != 2 or not 1 <= rows.shape[0] <= MAX_ROWS:
@@ -46,11 +62,12 @@ def multi_cumsum(rows):
     out = torch.empty_like(rows)
     if m == 0:
         return out
-    n_blocks = -(-m // TILE)
-    sums = torch.empty((r, n_blocks), dtype=rows.dtype, device=rows.device)
+    # uninitialised: the C entry clears it
+    scratch = torch.empty(multi_cumsum_plan(m, r)["scratch"], dtype=torch.int32,
+                          device=rows.device)
     name = _ENTRY[rows.dtype]
     _build.check(getattr(_build.library(), name)(
-        rows.data_ptr(), out.data_ptr(), sums.data_ptr(), r, m, n_blocks,
+        rows.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.numel(), r, m,
         _build.stream_ptr(rows)), name)
     multi_cumsum.launches += 1
     return out
@@ -83,10 +100,7 @@ def segmented_cumsum_plan(m, rows):
     block, "launches": kernel launches (one a group of 16 rows), "memsets":
     memsets of the scratch's counters and status words, "scratch": int32
     words}. Asks the kernel library, so it needs the CUDA toolkit."""
-    out = [ctypes.c_longlong() for _ in range(4)]
-    _build.check(_build.library().egs_segmented_cumsum_plan(
-        m, rows, *(ctypes.byref(v) for v in out)), "egs_segmented_cumsum_plan")
-    return dict(zip(("tile", "launches", "memsets", "scratch"), (v.value for v in out)))
+    return _plan("egs_segmented_cumsum_plan", m, rows)
 
 
 def segmented_cumsum(vals, flags):

@@ -14,8 +14,14 @@ import torch
 
 from easygaussiansplatting_tpu_torch.data import example_camera
 from easygaussiansplatting_tpu_torch.data.fixtures import (
+    PRE_BLOCK,
+    PRE_EDGES,
+    SCAN_CASES,
+    SCAN_TILE,
     SEG_CASES,
     SEG_TILE,
+    preprocess_case,
+    scan_case,
     segment_case,
     stacked_tile,
 )
@@ -23,6 +29,7 @@ from easygaussiansplatting_tpu_torch.data.synthetic import make_synthetic_scene
 from easygaussiansplatting_tpu_torch.models import Camera
 from easygaussiansplatting_tpu_torch.models.convert import gaussians_from_numpy
 from easygaussiansplatting_tpu_torch.models.gaussians import pool_from_arrays
+from easygaussiansplatting_tpu_torch.ops import stages
 from easygaussiansplatting_tpu_torch.ops.binning import bin_gaussians
 from easygaussiansplatting_tpu_torch.ops.kernels import preprocess, radix, rasterize, scan, sort
 from easygaussiansplatting_tpu_torch.ops.rasterize import raster_from_aux, render
@@ -67,7 +74,7 @@ def test_preprocess_kernel_matches_plain(cuda, deg):
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-@pytest.mark.parametrize("m", [1, 2047, 2048, 2049, 557056])
+@pytest.mark.parametrize("m", [1, 2047, 2048, 2049, 557056, 2**21, 2**24])
 def test_scan_kernel_matches_cumsum(cuda, dtype, m):
     g = torch.Generator().manual_seed(m)
     x = torch.randint(-9, 9, (3, m), generator=g).to(dtype).to(cuda)
@@ -78,6 +85,107 @@ def test_scan_kernel_matches_cumsum(cuda, dtype, m):
         assert torch.equal(got, want)
     else:  # small integers: every partial sum is exact in float32
         torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4, 5])
+@pytest.mark.parametrize("n", PRE_EDGES + (65537,))
+def test_preprocess_kernel_at_block_edges(cuda, n, deg):
+    """N at and around the kernel's 128-gaussian blocks
+    (data/fixtures.py::preprocess_case, a fifth behind the camera): the
+    float columns within 2e-5 of the plain version's (abs or rel), the
+    extents equal except where the pre-ceil value lies within 1e-4 of an
+    integer, and two calls bit-equal."""
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in preprocess_case(n, deg, seed=n).items()}
+    args = [t[k] for k in KEYS]
+    got = _kernel_twice(preprocess.preprocess_fwd, *args, CAM, sh_degree=deg)
+    want = preprocess.preprocess_plain(*args, CAM, sh_degree=deg)
+    torch.testing.assert_close(got[:, :10], want[:, :10], atol=2e-5, rtol=2e-5)
+    pre_ceil = 3.0 * torch.sqrt(torch.abs(
+        stages.preprocess(*args, CAM, sh_degree=deg)["cov2ds"][:, [0, 2]]))
+    near_int = (pre_ceil - torch.round(pre_ceil)).abs() < 1e-4
+    assert bool(((got[:, 10:] == want[:, 10:]) | near_int).all())
+
+
+def test_preprocess_kernel_needs_16_byte_alignment(cuda):
+    """The kernel stages 16 bytes at a time: a contiguous view that starts
+    4 bytes into its storage is refused, for the SH rows and for the
+    opacities alike."""
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in preprocess_case(64, 3).items()}
+    for name in ("shs", "alphas"):
+        good = t[name]
+        bad = torch.empty(good.numel() + 1, device=cuda)[1:].view(good.shape)
+        bad.copy_(good)
+        args = [bad if k == name else t[k] for k in KEYS]
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            preprocess.preprocess_fwd(*args, CAM, sh_degree=3)
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4, 5])
+def test_preprocess_kernel_info(cuda, deg):
+    """K1 spills nothing, and at degree 3 the step's 65,536 gaussians (512
+    blocks) run in one wave on the card's SMs, the driver's 131,072 in at
+    most two."""
+    info = preprocess.kernel_info("fwd", deg)
+    assert info["local_bytes"] == 0, info
+    assert info["threads"] == PRE_BLOCK and info["blocks_per_sm"] >= 1, info
+    if deg == 3:
+        wave = info["blocks_per_sm"] * torch.cuda.get_device_properties(0).multi_processor_count
+        assert wave * PRE_BLOCK >= 65536 and 2 * wave * PRE_BLOCK >= 131072, info
+
+
+@pytest.mark.parametrize("rows", [1, 2, 5, 8])
+@pytest.mark.parametrize("kind", SCAN_CASES)
+def test_scan_kernel_at_tile_edges(cuda, kind, rows):
+    """K3 at its tile edges (data/fixtures.py::scan_case: the tile and one
+    off it, several tiles, int32 sums wrapping across tile boundaries, m %
+    4 != 0 with row 1 unaligned): equal to torch.cumsum in int32."""
+    x = torch.from_numpy(scan_case(kind, rows)).to(cuda)
+    assert torch.equal(scan.multi_cumsum(x), torch.cumsum(x, 1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("kind", [k for k in SCAN_CASES if k != "wrap"] + ["bench", "long"])
+def test_scan_kernel_float32_bit_equal(cuda, kind):
+    """K3 in float32, at its tile edges, at binning's largest call and on
+    one row of 4,096 tiles: two calls bit-equal (the look-back folds the
+    carry in one order), within 1e-5 of the running sum of |x| of
+    torch.cumsum."""
+    if kind in ("bench", "long"):
+        shape = (2, 557056) if kind == "bench" else (1, 2**24)
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(0))
+    else:
+        x = torch.from_numpy(scan_case(kind, rows=3, dtype=np.float32))
+    got = _kernel_twice(scan.multi_cumsum, x.to(cuda)).cpu()
+    mag = torch.cumsum(x.double().abs(), 1)
+    assert bool(((got.double() - torch.cumsum(x.double(), 1)).abs() <= 1e-5 * mag).all())
+
+
+@pytest.mark.parametrize("m,rows", [(1, 1), (SCAN_TILE, 1), (SCAN_TILE + 1, 2), (229376, 2),
+                                    (557056, 2), (3 * SCAN_TILE + 17, 8)])
+def test_scan_plan(cuda, m, rows):
+    """egs_multi_cumsum_plan: tiles of SCAN_TILE positions of one row, one
+    launch and one memset a call; scratch of a counter (two words) and a
+    64-bit status word a tile. The wrapper's call launches one kernel
+    (profiled), and the C entry refuses one word less."""
+    plan = scan.multi_cumsum_plan(m, rows)
+    tiles = rows * -(-m // SCAN_TILE)
+    assert plan == {"tile": SCAN_TILE, "launches": 1, "memsets": 1, "scratch": 2 + 2 * tiles}
+    x = torch.ones((rows, m), dtype=torch.int32, device=cuda)
+    scan.multi_cumsum(x)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        scan.multi_cumsum(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("multi_scan_kernel" in n for n in names) == 1, names
+    out = torch.empty_like(x)
+    lib = scan._build.library()
+    for words, code_ok in ((plan["scratch"], True), (plan["scratch"] - 1, False)):
+        scratch = torch.empty(words, dtype=torch.int32, device=cuda)
+        code = lib.egs_multi_cumsum_i32(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), words,
+                                        rows, m, torch.cuda.current_stream().cuda_stream)
+        assert (code == 0) == code_ok
+    torch.cuda.synchronize()
+    assert torch.equal(scan.multi_cumsum(x), torch.cumsum(x, 1, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("stack", [False, True])
@@ -161,11 +269,8 @@ def test_segmented_scan_kernel_matches_plain(cuda, m):
     assert bool(((got - want).abs() <= 1e-5 * mag + 1e-6).all())
 
 
-K2_BLOCK = 128  # gaussians a block of csrc/preprocess_bwd.cu
-
-
 @pytest.mark.parametrize("deg", [0, 1, 2, 3, 4, 5])
-@pytest.mark.parametrize("n", [1, K2_BLOCK - 1, K2_BLOCK + 1, 3001])
+@pytest.mark.parametrize("n", [1, PRE_BLOCK - 1, PRE_BLOCK + 1, 3001])
 def test_preprocess_bwd_kernel_at_block_edges(cuda, n, deg):
     """N at and around the kernel's blocks (the last block partial), each
     group within 1e-4 of its max|want| (float32 sums in another order than
@@ -216,12 +321,12 @@ def test_preprocess_bwd_kernel_needs_16_byte_alignment(cuda):
 def test_preprocess_bwd_kernel_info(cuda, deg):
     """K2 spills nothing at any degree, and at degree 3 the step's 65,536
     gaussians (512 blocks) fit on the card's SMs in one wave."""
-    info = preprocess.bwd_kernel_info(deg)
+    info = preprocess.kernel_info("bwd", deg)
     assert info["local_bytes"] == 0, info
-    assert info["threads"] == K2_BLOCK and info["blocks_per_sm"] >= 1, info
+    assert info["threads"] == PRE_BLOCK and info["blocks_per_sm"] >= 1, info
     if deg == 3:
         n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-        assert info["blocks_per_sm"] * n_sm * K2_BLOCK >= 65536, info
+        assert info["blocks_per_sm"] * n_sm * PRE_BLOCK >= 65536, info
 
 
 @pytest.mark.parametrize("rows", [1, 9, 17])

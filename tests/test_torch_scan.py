@@ -13,7 +13,14 @@ from jax.experimental.pallas import tpu as pltpu
 
 from easygaussiansplatting_tpu.ops.pallas import scan as jax_scan
 from easygaussiansplatting_tpu.ops.pallas.rasterize import _sort_reduce_grads
-from easygaussiansplatting_tpu_torch.data.fixtures import SEG_CASES, SEG_TILE, segment_case
+from easygaussiansplatting_tpu_torch.data.fixtures import (
+    SCAN_CASES,
+    SCAN_TILE,
+    SEG_CASES,
+    SEG_TILE,
+    scan_case,
+    segment_case,
+)
 from easygaussiansplatting_tpu_torch.ops.kernels import scan
 from easygaussiansplatting_tpu_torch.ops.kernels.rasterize import sort_reduce_grads
 
@@ -74,6 +81,45 @@ def test_batched_cumsum_list(rng):
     got = scan.batched_cumsum([torch.from_numpy(a) for a in arrays])
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _interpreted_padded(x, lanes=1024):
+    """The Pallas kernel on rows zero-padded to a multiple of its block
+    (the padding's cumsum leaves the prefix as it is), cut back to m."""
+    r, m = x.shape
+    padded = np.zeros((r, -(-m // lanes) * lanes), x.dtype)
+    padded[:, :m] = x
+    return np.asarray(_interpreted_scan_kernel(jnp.asarray(padded), lanes=lanes))[:, :m]
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("kind", SCAN_CASES)
+def test_int32_matches_jax_at_tile_edges(kind, rows):
+    """The edges of the CUDA kernel's tiles of SCAN_TILE positions
+    (data/fixtures.py::scan_case: m at the tile and one off it, several
+    tiles, sums that wrap past 2^31 across tile boundaries, m % 4 != 0 with
+    row 1 unaligned) against the interpreted Pallas kernel and JAX
+    ``multi_cumsum`` in interpret mode: equal, wrap included."""
+    x = scan_case(kind, rows)
+    assert x.shape[1] in range(SCAN_TILE - 1, 4 * SCAN_TILE)
+    got = scan.multi_cumsum(torch.from_numpy(x))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _interpreted_padded(x))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax_scan.multi_cumsum(jnp.asarray(x), interpret=True)))
+
+
+@pytest.mark.parametrize("kind", [k for k in SCAN_CASES if k != "wrap"])
+def test_float32_matches_jax_at_tile_edges(kind):
+    """float32 rows at K3's tile edges: within 1e-5 of the running sum of
+    |x| of the interpreted Pallas kernel and of JAX ``multi_cumsum`` in
+    interpret mode (sums in other orders)."""
+    x = scan_case(kind, rows=3, dtype=np.float32)
+    got = scan.multi_cumsum(torch.from_numpy(x)).numpy()
+    mag = np.cumsum(np.abs(x.astype(np.float64)), axis=1)
+    for want in (_interpreted_padded(x),
+                 np.asarray(jax_scan.multi_cumsum(jnp.asarray(x), interpret=True))):
+        assert np.all(np.abs(got - want) <= 1e-5 * mag)
 
 
 @pytest.mark.parametrize("bad", ["int64", "rows", "dim", "noncontig"])
