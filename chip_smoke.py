@@ -42,7 +42,10 @@ gaussians, SH degree 3, 979x546, max_patches 557,056, max_rows 229,376):
   and binning's sub-steps at scripts/micro_bench.py's sizes) and the K10
   probe (``probes.exp_dma_stream.run``: 4,096 chunked row sums at runtime
   offsets), each kernel then held against its plain version with a planted
-  fault refused, timed beside its bytes bound;
+  fault refused, timed beside its bytes bound, which K9a, K9v and K10 may
+  not beat; K9v and K10 print their registers, spills and waves and are one
+  device kernel a call, and K10's compiled kernel must hold a TMA bulk copy
+  (cuobjdump, read right after the build with K4's and K5's loops);
 * the render, train and bench CLIs once each, the train CLI once more with
   --preview --profile --debug-nans, the eval CLI on the train CLI's
   final.npy, the eval's per-view function on the driver's final pool
@@ -175,12 +178,15 @@ K6_RTOL = 1e-5
 # stable sort, so the sums run in the same order.)
 ROUTE_REL = 1e-4
 # K9b and K9v against their plain versions: float32 sums of each tile's
-# chunks (K9b: the same adds in the same order; K9v: the 256 pixels in
-# another order), within 1e-6 of the sum of |x| behind each value (the fp32
-# bound is ~log2(256) * 2^-24 = 4.8e-7 of it). K10: float32 column sums of
-# up to 128 rows in another order, within 1e-5 of the sum of |x| (128 *
-# 2^-24 = 7.6e-6 in the worst case). Each limit must refuse a planted fault:
-# one value moved by PLANTED of its sum of |x|.
+# chunks, within 1e-6 of the sum of |x| behind each value. K9b does the same
+# adds in the same order (bit-equal). K9v sums a tile of n chunks in a fixed
+# tree (csrc/micro_bench.cu) of rounding depth 3 + 3 + (ceil(n / 8) - 1) + 5:
+# at most 12 at the script's <= 9 chunks a tile, so 12 * 2^-24 = 7.2e-7 of
+# it in the worst case (15 and 8.9e-7 at 40 chunks). K10: float32 column sums
+# of up to 128 rows in another order, within 1e-5 of the sum of |x| (depth
+# 15 + 3 in the kernel: 1.1e-6; 128 * 2^-24 = 7.6e-6 for any order).
+# Each limit must refuse a planted fault: one value moved by PLANTED of its
+# sum of |x|.
 K9_RTOL = 1e-6
 K10_RTOL = 1e-5
 PLANTED = 1e-3
@@ -188,6 +194,10 @@ GATE_CHECKS = 36
 # K5's cross-pixel reduction (csrc/rasterize_bwd.cu): a 12-shuffle
 # reduce-scatter of the nine terms per (entry, warp) with a live pair
 K5_SHUFFLES = 12
+# Hopper's SASS opcode of a bulk copy from global to shared memory
+# (cp.async.bulk.shared::cluster.global, csrc/tma.cuh), which K10's compiled
+# kernel must hold
+BULK_COPY_OPCODE = "UBLKCP"
 
 
 # device kernel names of each port kernel (csrc/)
@@ -497,21 +507,35 @@ def k4_walk(tile_cnt, final_tau, contrib):
 
 
 @functools.cache
-def sass_loop(kernel):
-    """The compiled inner loop of a blend kernel, read from the built
-    library with cuobjdump: (SASS instructions in the smallest loop that
-    holds an ex2, its SHFL count), or None where cuobjdump is missing. The
-    loop is one warp-iteration of K4, one (entry, warp) step of K5. main()
-    reads both before the first profile: a cuobjdump run after a
+def sass_dump():
+    """The built library's SASS (cuobjdump -sass, which must sit beside
+    nvcc). main() reads it right after the build: a cuobjdump run after a
     torch.profiler window makes every later window lose its first device
     record (probes/profiler_records.py)."""
     tool = Path(_build.nvcc_path()).with_name("cuobjdump")
-    if not tool.exists():
-        return None
-    out = subprocess.run([str(tool), "-sass", str(_build.BUILD_DIR / _build.LIB_NAME)],
-                         capture_output=True, text=True, timeout=300, check=True).stdout
-    body = next(f for f in out.split("Function : ")[1:] if kernel in f.split("\n", 1)[0])
-    ins = [(int(a, 16), i) for a, i in re.findall(r"/\*([0-9a-f]{4})\*/\s+([^;]*);", body)]
+    require(tool.exists(), f"{tool} is missing: the SASS checks need it")
+    return subprocess.run([str(tool), "-sass", str(_build.BUILD_DIR / _build.LIB_NAME)],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+
+
+def sass_body(kernel):
+    """[(address, instruction)] of the compiled device function whose name
+    holds ``kernel``."""
+    body = next(f for f in sass_dump().split("Function : ")[1:] if kernel in f.split("\n", 1)[0])
+    return [(int(a, 16), i) for a, i in re.findall(r"/\*([0-9a-f]{4})\*/\s+([^;]*);", body)]
+
+
+def opcode(ins):
+    """An instruction's opcode with its modifiers, past any predicate."""
+    words = ins.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def sass_loop(kernel):
+    """The compiled inner loop of a blend kernel: (SASS instructions in the
+    smallest loop that holds an ex2, its SHFL count). The loop is one
+    warp-iteration of K4, one (entry, warp) step of K5."""
+    ins = sass_body(kernel)
     at = {a: k for k, (a, _) in enumerate(ins)}
     loops = []
     for k, (a, i) in enumerate(ins):
@@ -567,10 +591,9 @@ def phase_k4(device, flush, clock_mhz, n_sm):
         "tile)".format(**work))
     lines.append(kernel_info_line("K4", "fwd"))
     loop = sass_loop("rasterize_fwd_kernel")
-    lines.append("K4 compiled inner loop (cuobjdump -sass): " + (
-        "not measured (no cuobjdump)" if loop is None else
-        f"{loop[0]} instructions a warp-iteration, {loop[0] / 4:.2f} per 32-pixel slot (4 pixels "
-        f"a lane); {loop[0] * work['warp_iters']} issued over this data's warp-iterations"))
+    lines.append(f"K4 compiled inner loop (cuobjdump -sass): {loop[0]} instructions a "
+                 f"warp-iteration, {loop[0] / 4:.2f} per 32-pixel slot (4 pixels a lane); "
+                 f"{loop[0] * work['warp_iters']} issued over this data's warp-iterations")
     return {"name": "K4 rasterize_fwd", "route": "cuda",
             "source": "easygaussiansplatting_tpu_torch/csrc/rasterize_fwd.cu",
             "replaces": "easygaussiansplatting_tpu/ops/pallas/kernels.py:174",
@@ -1028,7 +1051,6 @@ def phase_k5(seen, flush, clock_mhz, n_sm):
         f"(entry, warp) steps, {K5_SHUFFLES * work['warp_live']} shuffles")
     lines.append(kernel_info_line("K5", "bwd"))
     loop = sass_loop("rasterize_bwd_kernel")
-    require(loop is not None, "cuobjdump is missing beside nvcc: K5's inner loop not read")
     lines.append(f"K5 compiled inner loop (cuobjdump -sass): {loop[0]} instructions an "
                  f"(entry, warp) step, {loop[1]} of them shuffles")
     require(loop[1] == K5_SHUFFLES,
@@ -1422,14 +1444,23 @@ def phase_k9(device, flush, clock_mhz, n_sm):
                         "source": "easygaussiansplatting_tpu_torch/csrc/micro_bench.cu",
                         "replaces": f"scripts/micro_bench.py{line}",
                         "launches": launches.get(name, 0), "max_abs_err": err, **t})
-    ta = entries[0]
+    ta, tb, tv = entries
     require(ta["ms"] >= ta["bound_ms"],
             f"K9a took {ta['ms']:.4f} ms, below its bytes bound {ta['bound_ms']:.4f} ms: the "
             f"loads that nothing reads were dropped")
-    for e in entries[1:]:
-        lines.append(f"{e['name']}: {1e3 * (e['ms'] - e['bound_ms']):.2f} us over its bytes "
-                     f"bound across {nt} tile blocks ({1e6 * (e['ms'] - e['bound_ms']) / nt:.1f} "
-                     f"ns a block)")
+    require(tv["ms"] >= tv["bound_ms"],
+            f"K9v took {tv['ms']:.4f} ms, below its bytes bound {tv['bound_ms']:.4f} ms")
+    lines.append(f"K9b: {1e3 * (tb['ms'] - tb['bound_ms']):.2f} us over its bytes bound across "
+                 f"{nt} tile blocks ({1e6 * (tb['ms'] - tb['bound_ms']) / nt:.1f} ns a block)")
+    info = micro_bench.kernel_info()
+    blocks = -(-nt // info["tiles_per_block"])
+    lines.append(f"K9v as compiled: a warp a tile, {info['tiles_per_block']} warps a block, "
+                 f"{blocks} blocks; {info['registers']} registers a thread, "
+                 f"{info['local_bytes']} spill bytes, {info['blocks_per_sm']} resident blocks an "
+                 f"SM, so {blocks / (info['blocks_per_sm'] * n_sm):.2f} waves on {n_sm} SMs; "
+                 f"{1e3 * (tv['ms'] - tv['bound_ms']):.2f} us over its bytes bound")
+    lines.append("K9v device kernels per call: " + require_kernel_count(
+        "K9v", lambda: micro_bench.variant_vmem_resident(q, nt, packed, tiles), 1))
     return entries, lines
 
 
@@ -1469,6 +1500,24 @@ def phase_k10(device, flush, clock_mhz, n_sm):
     lines.append(f"K10: {q} chunks, {n_sum} rows summed, {covered} of {m} rows of x covered "
                  f"({covered * 64 / 1e6:.2f} MB); {1e6 * t['ms'] / q:.1f} ns a chunk, bound "
                  f"{1e6 * t['bound_ms'] / q:.1f} ns a chunk")
+    require(t["ms"] >= t["bound_ms"],
+            f"K10 took {t['ms']:.4f} ms, below its bytes bound {t['bound_ms']:.4f} ms")
+    info = exp_dma_stream.kernel_info()
+    blocks = -(-q // info["chunks_per_block"])
+    lines.append(f"K10 as compiled: a ring of {info['stages']} stages, "
+                 f"{info['chunks_per_block']} chunks a block, {blocks} blocks; "
+                 f"{info['shared_bytes']} shared bytes and {info['registers']} registers a "
+                 f"block / thread, {info['local_bytes']} spill bytes, {info['blocks_per_sm']} "
+                 f"resident blocks an SM, so {blocks / (info['blocks_per_sm'] * n_sm):.2f} waves "
+                 f"on {n_sm} SMs")
+    ops = [opcode(i) for _, i in sass_body("stream_sums_kernel")]
+    bulk = [o for o in ops if o.startswith(BULK_COPY_OPCODE)]
+    lines.append(f"K10 compiled (cuobjdump -sass): {len(ops)} instructions, bulk copies "
+                 f"{bulk}; barrier and async opcodes "
+                 f"{sorted({o for o in ops if o.startswith(('SYNCS', 'UBLK', 'UTMA', 'FENCE'))})}")
+    require(bulk, f"K10's compiled kernel holds no {BULK_COPY_OPCODE} (bulk copy)")
+    lines.append("K10 device kernels per call: " + require_kernel_count(
+        "K10", lambda: exp_dma_stream.stream_sums(offs, rows, x), 1))
     return [{"name": "K10 stream_sums", "route": "cuda",
              "source": "easygaussiansplatting_tpu_torch/csrc/dma_stream.cu",
              "replaces": "scripts/exp_dma_stream.py:25",
@@ -1731,8 +1780,7 @@ def main():
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
-    for kernel in ("rasterize_fwd_kernel", "rasterize_bwd_kernel"):
-        sass_loop(kernel)
+    sass_dump()
 
     launches, lines, (render_once, wall_ms) = phase_slice(device)
     for line in lines:

@@ -10,17 +10,22 @@ computes ``out[c] = x[offs[c]:offs[c] + rows[c]].sum(0)``, checks it against
 numpy, prints ``max err: ... OK`` or ``FAIL`` and the time per chunk, and
 exits non-zero on FAIL.
 
-The kernel (``csrc/dma_stream.cu``) stages each [128, 16] chunk in shared
-memory with ``cp.async``, double-buffered, the wait one chunk behind the
-copy: Hopper's counterpart of the Pallas kernel's DMA and semaphores. Its
-plain PyTorch version, :func:`stream_sums_plain`, gathers and sums. CPU
-tensors take the plain version; CUDA tensors launch the kernel. As in the
-script, a chunk's whole block is read, so ``offs`` must lie in
-[0, m - 128] and ``rows`` in [1, 128]; the plain version checks both and
-raises, and the kernel clamps them, so it never reads outside ``x``.
+The kernel (``csrc/dma_stream.cu``) is Hopper's counterpart of the Pallas
+kernel's DMA and semaphores: a block takes 8 consecutive chunks through a
+ring of 4 shared-memory slots, one a warp, each filled by one TMA bulk copy
+of exactly the ``rows[c]`` rows that are summed and reported by an
+``mbarrier`` (``csrc/tma.cuh``). Its plain PyTorch version, :func:`stream_sums_plain`,
+gathers and sums. CPU tensors take the plain version; CUDA tensors launch
+the kernel, and ``x`` must then be 16-byte aligned (a bulk copy's source
+is). As in the script, a chunk reads ``x[offs[c]:offs[c] + 128]``, so
+``offs`` must lie in [0, m - 128] and ``rows`` in [1, 128]; the plain
+version checks both and raises, and the kernel clamps them (``offs`` into
+[0, m - 128], ``rows`` into [0, 128]), so it never reads outside ``x``.
+:func:`kernel_info` gives what the compiled kernel takes on the card.
 """
 
 import argparse
+import ctypes
 import time
 
 import numpy as np
@@ -66,6 +71,8 @@ def stream_sums(offs, rows, x):
     _check_layout(offs, rows, x)
     if x.device.type == "cpu":
         return stream_sums_plain(offs, rows, x)
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned: the kernel copies it by TMA bulk copies")
     q = offs.shape[0]
     out = torch.empty((q, 1, COLS), dtype=torch.float32, device=x.device)
     if q == 0:
@@ -78,6 +85,23 @@ def stream_sums(offs, rows, x):
 
 
 stream_sums.launches = 0
+
+INFO_KEYS = ("registers", "shared_bytes", "local_bytes", "blocks_per_sm", "threads", "stages",
+             "chunks_per_block")
+
+
+def kernel_info():
+    """What the compiled K10 kernel takes on the card: {"registers": per
+    thread, "shared_bytes": per block, "local_bytes": per thread (spills),
+    "blocks_per_sm": resident blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "threads": per block,
+    "stages": slots of its ring, "chunks_per_block"}. Builds the kernels
+    first if needed; needs the card."""
+    fn = _build.library().egs_stream_sums_info
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    _build.check(fn(ctypes.addressof(out)), "egs_stream_sums_info")
+    return dict(zip(INFO_KEYS, out))
 
 
 def make_inputs(m=M, q_total=Q_TOTAL):

@@ -17,10 +17,15 @@ tiles, ``tiles`` non-decreasing, both from ``default_rng(0)``) it prints one
 A, B and V are the three kernels of ``csrc/micro_bench.cu``; each public
 function keeps the JAX signature and layouts and has its plain PyTorch
 version beside it. CPU tensors take the plain version; CUDA tensors launch
-the kernel. The plain versions check that ``tiles`` is non-decreasing and in
-range, and raise; the CUDA path checks layouts only (a value check would
-read the device), and its binary search stays in bounds whatever the values,
-but its sums for such ``tiles`` are unspecified.
+the kernel. A streams every chunk into shared memory by ``cp.async``; B
+runs a block per tile and a thread per pixel; V a warp per tile, which
+finds its chunks by a 128-ary search and sums them by float4 loads in a
+fixed tree. A and V read ``packed`` 16 bytes at a time, so on the card it
+must be 16-byte aligned. The plain versions check that ``tiles`` is
+non-decreasing and in range, and raise; the CUDA path checks layouts only
+(a value check would read the device), and its searches stay in bounds
+whatever the values, but its sums for such ``tiles`` are unspecified.
+:func:`kernel_info` gives what the compiled V kernel takes on the card.
 
 Where the TPU semantics leave B open, the port defines it: the Pallas kernel
 initialises only the output block of ``tiles[0]``, so every other tile
@@ -30,6 +35,7 @@ everywhere.
 """
 
 import argparse
+import ctypes
 import time
 
 import numpy as np
@@ -57,6 +63,11 @@ def _check_layout(q_total, packed, tiles):
         raise ValueError(f"unsupported device {packed.device}")
 
 
+def _check_aligned(packed):
+    if packed.data_ptr() % 16:
+        raise ValueError("packed must be 16-byte aligned: the kernel reads it 16 bytes at a time")
+
+
 def _check_tiles(tiles, n_tiles=None):
     """The precondition of the plain versions: ``tiles`` non-decreasing and
     in [0, n_tiles) (or non-negative when n_tiles is None)."""
@@ -81,6 +92,7 @@ def variant_a(q_total, packed, tiles):
     _check_layout(q_total, packed, tiles)
     if packed.device.type == "cpu":
         return variant_a_plain(q_total, packed, tiles)
+    _check_aligned(packed)
     if q_total == 0:  # no chunk to stream, so no block to write the zeros
         return torch.zeros((8, 128), dtype=torch.float32, device=packed.device)
     out = torch.empty((8, 128), dtype=torch.float32, device=packed.device)
@@ -157,6 +169,7 @@ def variant_vmem_resident(q_total, n_tiles, packed, tiles):
     _check_layout(q_total, packed, tiles)
     if packed.device.type == "cpu":
         return variant_vmem_resident_plain(q_total, n_tiles, packed, tiles)
+    _check_aligned(packed)
     out = torch.empty((n_tiles, 3), dtype=torch.float32, device=packed.device)
     if n_tiles == 0:
         return out
@@ -168,6 +181,23 @@ def variant_vmem_resident(q_total, n_tiles, packed, tiles):
 
 
 variant_vmem_resident.launches = 0
+
+INFO_KEYS = ("registers", "shared_bytes", "local_bytes", "blocks_per_sm", "threads",
+             "tiles_per_block")
+
+
+def kernel_info():
+    """What the compiled K9v kernel takes on the card: {"registers": per
+    thread, "shared_bytes": per block, "local_bytes": per thread (spills),
+    "blocks_per_sm": resident blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "threads": per block,
+    "tiles_per_block": one a warp}. Builds the kernels first if needed;
+    needs the card."""
+    fn = _build.library().egs_tile_totals_info
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    _build.check(fn(ctypes.addressof(out)), "egs_tile_totals_info")
+    return dict(zip(INFO_KEYS, out))
 
 
 def make_inputs(device, q_total=Q_TOTAL, n_tiles=N_TILES):

@@ -8,6 +8,10 @@ The file imports no JAX, so it also runs where only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -637,12 +641,16 @@ def _k9_inputs(q, n_tiles, seed):
     return packed, torch.from_numpy(np.sort(tiles))
 
 
-@pytest.mark.parametrize("q,n_tiles", [(0, 3), (1, 1), (40, 9), (6266, 2170)])
+@pytest.mark.parametrize("q,n_tiles", [(0, 3), (1, 1), (40, 9), (6266, 2170), (0, 1), (40, 1),
+                                       (3, 9), (120, 3)])
 def test_micro_bench_kernels_match_plain(cuda, q, n_tiles):
     """K9a exact zeros; K9b the same float32 adds in chunk order as its plain
-    version (bit-equal), tau exact; K9v sums the pixels in another order,
-    within 1e-6 of each tile's sum of |x| (the fp32 bound ~log2(256) * 2^-24
-    of it). With no chunk, K9a launches nothing and B and V give zeros."""
+    version (bit-equal), tau exact; K9v sums each tile in a fixed tree of
+    rounding depth 3 + 3 + (ceil(n / 8) - 1) + 5 over its n chunks (12 at 9
+    chunks, 15 at 40: at most 8.9e-7 of the sum of |x| behind a value),
+    within 1e-6 of each tile's sum of |x|, and two calls are bit-equal. With
+    no chunk, K9a launches nothing and B and V give zeros; (40, 1) is one
+    tile of 40 chunks, (3, 9) and (120, 3) hold tiles that no chunk visits."""
     packed, tiles = _k9_inputs(q, n_tiles, q)
     pc, tc = packed.to(cuda), tiles.to(cuda)
     before = (micro_bench.variant_a.launches, micro_bench.variant_b.launches,
@@ -659,16 +667,44 @@ def test_micro_bench_kernels_match_plain(cuda, q, n_tiles):
     mag = micro_bench.variant_vmem_resident_plain(q, n_tiles, packed.abs(), tiles)
     v_p = micro_bench.variant_vmem_resident_plain(q, n_tiles, packed, tiles)
     assert bool(((v.cpu() - v_p).abs() <= 1e-6 * mag).all())
+    assert not v.cpu()[mag == 0].any()
+    assert torch.equal(micro_bench.variant_vmem_resident(q, n_tiles, pc, tc), v)
 
 
-@pytest.mark.parametrize("m,q", [(256, 0), (256, 3), (4096, 24), (1 << 18, 4096)])
+@pytest.mark.parametrize("variant", ["a", "vmem_resident"])
+def test_micro_bench_kernels_need_16_byte_alignment(cuda, variant):
+    """K9a and K9v read ``packed`` 16 bytes at a time: a view 4 bytes into
+    its buffer is refused before any launch."""
+    packed, tiles = _k9_inputs(12, 5, 0)
+    buf = torch.empty(packed.numel() + 1, device=cuda)
+    view = buf[1:].view(packed.shape)
+    view.copy_(packed.to(cuda))
+    args = (12, view, tiles.to(cuda)) if variant == "a" else (12, 5, view, tiles.to(cuda))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        getattr(micro_bench, f"variant_{variant}")(*args)
+
+
+def test_micro_bench_vmem_resident_kernel_info(cuda):
+    """K9v as compiled: no spills, and the script's 2,170 tiles (a warp
+    each) fit the card's resident blocks in one wave."""
+    info = micro_bench.kernel_info()
+    assert info["local_bytes"] == 0, info
+    assert info["threads"] == 32 * info["tiles_per_block"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-micro_bench.N_TILES // info["tiles_per_block"])
+    assert blocks <= info["blocks_per_sm"] * n_sm, info
+
+
+@pytest.mark.parametrize("m,q", [(256, 0), (256, 3), (4096, 24), (1 << 18, 4096), (4096, 1),
+                                 (4096, 7), (4096, 9)])
 def test_stream_sums_kernel_matches_plain(cuda, m, q):
     """float32 column sums of up to 128 rows in another order: within 1e-5
-    of the sums of |x|. With no chunk, nothing is launched."""
+    of the sums of |x|, and two calls are bit-equal. With no chunk, nothing
+    is launched. q of 1, 7 and 9 leave a block fewer chunks than the ring
+    has stages; rows of 1 and 128 sit at both ends of x."""
     x, offs, rows = exp_dma_stream.make_inputs(m=m, q_total=q)
-    if q >= 2:
-        offs[:2] = (0, m - 128)  # both ends of x
-        rows[:2] = (128, 1)
+    ends = ((0, 128), (m - 128, 1), (0, 1), (m - 128, 128))[:q]
+    offs[:len(ends)], rows[:len(ends)] = zip(*ends) if ends else ((), ())
     x, offs, rows = (torch.from_numpy(a) for a in (x, offs, rows))
     before = exp_dma_stream.stream_sums.launches
     got = exp_dma_stream.stream_sums(offs.to(cuda), rows.to(cuda), x.to(cuda))
@@ -677,3 +713,57 @@ def test_stream_sums_kernel_matches_plain(cuda, m, q):
     mag = exp_dma_stream.stream_sums_plain(offs, rows, x.abs())
     assert got.shape == (q, 1, 16)
     assert bool(((got.cpu() - want).abs() <= 1e-5 * mag).all())
+    again = exp_dma_stream.stream_sums(offs.to(cuda), rows.to(cuda), x.to(cuda))
+    assert torch.equal(again, got)
+
+
+_CLAMP_CHILD = """
+import numpy as np, torch
+from easygaussiansplatting_tpu_torch.probes import exp_dma_stream as e
+m = 1024
+x, offs, rows = e.make_inputs(m=m, q_total=19)
+offs[:10] = (-5, m - 127, m + 1000, 2**31 - 1, -2**31, 0, m - 128, 7, 7, 300)
+rows[:10] = (0, 129, -3, 128, 64, 2**31 - 1, -2**31, 0, 0, 0)
+got = e.stream_sums(*(torch.from_numpy(a).cuda() for a in (offs, rows, x)))
+torch.cuda.synchronize()
+o, r = np.clip(offs.astype(np.int64), 0, m - 128), np.clip(rows, 0, 128)
+want = np.stack([x[a:a + n].sum(0) for a, n in zip(o, r)])
+mag = np.stack([np.abs(x[a:a + n]).sum(0) for a, n in zip(o, r)])
+err = np.abs(got.cpu().numpy()[:, 0] - want)
+assert (err <= 1e-5 * mag).all(), err.max()
+assert not got[[0, 2, 6, 7, 8, 9]].any()
+print("clamped ok")
+"""
+
+
+def test_stream_sums_kernel_clamps_out_of_range_values(cuda):
+    """Offsets and row counts out of range, a row count of 0 among them, are
+    clamped (offs into [0, m - 128], rows into [0, 128]) and the sums match
+    a numpy reference of the clamp; the plain version raises on these
+    inputs. A row count of 0 issues no copy, so a wrong barrier count would
+    hang: the call runs in a child process under a timeout of its own."""
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", _CLAMP_CHILD], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0 and "clamped ok" in res.stdout, res.stdout + res.stderr
+
+
+def test_stream_sums_kernel_needs_16_byte_alignment(cuda):
+    """A bulk copy's source is 16-byte aligned: a view of x 4 bytes into its
+    buffer is refused before any launch."""
+    x, offs, rows = (torch.from_numpy(a).to(cuda) for a in exp_dma_stream.make_inputs(1024, 8))
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        exp_dma_stream.stream_sums(offs, rows, view)
+
+
+def test_stream_sums_kernel_info(cuda):
+    """K10 as compiled: no spills, a ring of at least 4 stages, and the
+    script's 4,096 chunks fit the card's resident blocks in one wave."""
+    info = exp_dma_stream.kernel_info()
+    assert info["local_bytes"] == 0 and info["stages"] >= 4, info
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-exp_dma_stream.Q_TOTAL // info["chunks_per_block"])
+    assert blocks <= info["blocks_per_sm"] * n_sm, info

@@ -51,7 +51,9 @@ def _inputs(q, n_tiles, seed, skip=()):
     return packed, tiles
 
 
-CASES = [(12, 5, 0, ()), (40, 9, 1, (3, 8))]
+# (q, n_tiles, seed, tiles no chunk visits); the last two put 40 chunks in
+# one tile, alone or between two empty tiles
+CASES = [(12, 5, 0, ()), (40, 9, 1, (3, 8)), (40, 1, 2, ()), (40, 3, 2, (0, 2))]
 
 
 @pytest.mark.parametrize("q,n_tiles,seed,skip", CASES)
@@ -131,6 +133,22 @@ def test_stream_sums_matches_interpreted_pallas():
                                      torch.from_numpy(x))
     assert got.shape == (24, 1, 16)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n", [1, 128])
+@pytest.mark.parametrize("end", ["first rows", "last rows"])
+def test_stream_sums_at_the_ends_of_x_matches_interpreted_pallas(end, n):
+    """Chunks of 1 and of 128 rows that start at row 0 or end at row m - 1:
+    within 1e-5 abs, as above."""
+    x, offs, rows = exp_dma_stream.make_inputs(m=1024, q_total=6)
+    offs[:3] = 0 if end == "first rows" else 1024 - 128
+    rows[:3] = n
+    want = _jax_stream_sums(offs, rows, x)
+    got = exp_dma_stream.stream_sums(torch.from_numpy(offs), torch.from_numpy(rows),
+                                     torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    if end == "last rows" and n == 128:
+        np.testing.assert_allclose(got.numpy()[0, 0], x[-128:].sum(0), atol=1e-5, rtol=0)
 
 
 def _bad_k9(case):
