@@ -1,6 +1,6 @@
 // Hopper's bulk copies (the Tensor Memory Accelerator, TMA) and the shared
 // memory barriers (mbarrier) that report their completion, sm_90 and later.
-// Used by K10 (dma_stream.cu).
+// Used by K10 (dma_stream.cu) and K9b (micro_bench.cu).
 //
 // A bulk copy moves a contiguous run of bytes from global to shared memory:
 // one thread issues it, the hardware computes the addresses and, when the
@@ -18,16 +18,16 @@
 // The phase of the k-th use of a slot is k & 1. Before a slot is refilled,
 // every read of it by the generic proxy (ordinary loads) must be ordered
 // before the async proxy's write: the consumers pass a barrier (a
-// __syncwarp where one warp reads the slot, as in K10; a __syncthreads or
-// an "empty" mbarrier where several do) and the producer then issues
-// fence_proxy_async() before the copy.
+// __syncwarp where one warp reads the slot, as in K10 and K9b; a
+// __syncthreads or an "empty" mbarrier where several do) and the producer
+// then issues fence_proxy_async() before the copy.
 //
-// What the card tests cover: K10's one reader warp a slot with a __syncwarp
-// as the empty side, and two uses a slot (phases 0 and 1; dma_stream.cu
-// asserts it). The empty side of several reader warps a slot (an "empty"
-// mbarrier or a __syncthreads) and a parity that wraps past a slot's second
-// use are not run by any test: the first kernel that needs them (K4/K5 with
-// staged table rows) brings a card test that does.
+// What the card tests cover: one reader warp a slot with a __syncwarp as the
+// empty side, a slot's two uses in K10 (phases 0 and 1; dma_stream.cu
+// asserts it) and up to 14 in K9b (its tile of 40 chunks in 3 slots: the
+// parity wraps). The empty side of several reader warps a slot (an "empty"
+// mbarrier or a __syncthreads) is not run by any test: the first kernel that
+// needs it (K4/K5 with staged table rows) brings a card test that does.
 //
 // Each helper is volatile inline PTX that clobbers memory, so the compiler
 // neither drops nor reorders it across other memory accesses.

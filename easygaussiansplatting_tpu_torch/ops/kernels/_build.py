@@ -70,6 +70,11 @@ SIGNATURES = {
     "egs_stream_chunks": [_P, _L, _I, _P, _I, _P],
     "egs_tile_sums": [_P, _L, _P, _I, _I, _P, _P, _P, _I, _P],
     "egs_stream_sums": [_P, _L, _P, _P, _I, _P, _P],
+    # the probes' kernels as compiled (K9b for 0, K9v for 1; K10): registers,
+    # shared bytes, local (spill) bytes, resident blocks an SM, threads a
+    # block and their layout, to six or seven ints
+    "egs_tile_sums_info": [_I, _P],
+    "egs_stream_sums_info": [_P],
 }
 
 

@@ -42,13 +42,13 @@ comparison is plain against plain.
 
 import argparse
 import json
-import subprocess
 
 import numpy as np
 import torch
 
 from easygaussiansplatting_tpu_torch.ops import blend, rasterize_tiled
 from easygaussiansplatting_tpu_torch.ops.kernels import preprocess, rasterize
+from easygaussiansplatting_tpu_torch.probes import ab
 from easygaussiansplatting_tpu_torch.utils.device import resolve_device, synchronize
 
 TILE = 16
@@ -151,9 +151,7 @@ def main(argv=None):
     a = ap.parse_args(argv)
     out = run(a.device, a.tiles)
     if torch.device(a.device).type == "cuda":
-        out["card"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=False).stdout.strip()
+        out["card"] = ab.card()
     for name in ("product", "stop"):
         r = out[name]
         print(f"{name} exit: {r['resumed']} of {out['pixels']} pixels resumed by the second "

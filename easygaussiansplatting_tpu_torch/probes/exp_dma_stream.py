@@ -97,10 +97,9 @@ def kernel_info():
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "threads": per block,
     "stages": slots of its ring, "chunks_per_block"}. Builds the kernels
     first if needed; needs the card."""
-    fn = _build.library().egs_stream_sums_info
-    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
     out = (ctypes.c_int * len(INFO_KEYS))()
-    _build.check(fn(ctypes.addressof(out)), "egs_stream_sums_info")
+    _build.check(_build.library().egs_stream_sums_info(ctypes.addressof(out)),
+                 "egs_stream_sums_info")
     return dict(zip(INFO_KEYS, out))
 
 

@@ -18,14 +18,15 @@ A, B and V are the three kernels of ``csrc/micro_bench.cu``; each public
 function keeps the JAX signature and layouts and has its plain PyTorch
 version beside it. CPU tensors take the plain version; CUDA tensors launch
 the kernel. A streams every chunk into shared memory by ``cp.async``; B
-runs a block per tile and a thread per pixel; V a warp per tile, which
-finds its chunks by a 128-ary search and sums them by float4 loads in a
-fixed tree. A and V read ``packed`` 16 bytes at a time, so on the card it
-must be 16-byte aligned. The plain versions check that ``tiles`` is
+and V run a warp per tile, which finds its chunks by a 128-ary search. B
+stages each chunk's rows 0-2 in shared memory by TMA bulk copies and adds
+them in chunk order; V reads them by float4 loads and sums them in a fixed
+tree. All three read ``packed`` in 16-byte pieces, so on the card it must
+be 16-byte aligned. The plain versions check that ``tiles`` is
 non-decreasing and in range, and raise; the CUDA path checks layouts only
 (a value check would read the device), and its searches stay in bounds
 whatever the values, but its sums for such ``tiles`` are unspecified.
-:func:`kernel_info` gives what the compiled V kernel takes on the card.
+:func:`kernel_info` gives what the compiled B or V kernel takes on the card.
 
 Where the TPU semantics leave B open, the port defines it: the Pallas kernel
 initialises only the output block of ``tiles[0]``, so every other tile
@@ -138,6 +139,7 @@ def variant_b(q_total, n_tiles, packed, tiles):
     _check_layout(q_total, packed, tiles)
     if packed.device.type == "cpu":
         return variant_b_plain(q_total, n_tiles, packed, tiles)
+    _check_aligned(packed)
     img = torch.empty((n_tiles, 3, K), dtype=torch.float32, device=packed.device)
     tau = torch.empty((n_tiles, K, 1), dtype=torch.float32, device=packed.device)
     if n_tiles == 0:
@@ -186,17 +188,18 @@ INFO_KEYS = ("registers", "shared_bytes", "local_bytes", "blocks_per_sm", "threa
              "tiles_per_block")
 
 
-def kernel_info():
-    """What the compiled K9v kernel takes on the card: {"registers": per
-    thread, "shared_bytes": per block, "local_bytes": per thread (spills),
-    "blocks_per_sm": resident blocks an SM
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "threads": per block,
-    "tiles_per_block": one a warp}. Builds the kernels first if needed;
-    needs the card."""
-    fn = _build.library().egs_tile_totals_info
-    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+def kernel_info(variant):
+    """What the compiled K9b (``variant`` "b") or K9v ("vmem_resident")
+    kernel takes on the card: {"registers": per thread, "shared_bytes": per
+    block, "local_bytes": per thread (spills), "blocks_per_sm": resident
+    blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "threads":
+    per block, "tiles_per_block": one a warp}. Builds the kernels first if
+    needed; needs the card."""
+    if variant not in ("b", "vmem_resident"):
+        raise ValueError(f"variant must be 'b' or 'vmem_resident', got {variant!r}")
     out = (ctypes.c_int * len(INFO_KEYS))()
-    _build.check(fn(ctypes.addressof(out)), "egs_tile_totals_info")
+    _build.check(_build.library().egs_tile_sums_info(
+        int(variant == "vmem_resident"), ctypes.addressof(out)), "egs_tile_sums_info")
     return dict(zip(INFO_KEYS, out))
 
 

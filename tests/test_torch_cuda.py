@@ -642,15 +642,18 @@ def _k9_inputs(q, n_tiles, seed):
 
 
 @pytest.mark.parametrize("q,n_tiles", [(0, 3), (1, 1), (40, 9), (6266, 2170), (0, 1), (40, 1),
-                                       (3, 9), (120, 3)])
+                                       (3, 9), (120, 3), (129, 17), (130, 9)])
 def test_micro_bench_kernels_match_plain(cuda, q, n_tiles):
     """K9a exact zeros; K9b the same float32 adds in chunk order as its plain
     version (bit-equal), tau exact; K9v sums each tile in a fixed tree of
     rounding depth 3 + 3 + (ceil(n / 8) - 1) + 5 over its n chunks (12 at 9
     chunks, 15 at 40: at most 8.9e-7 of the sum of |x| behind a value),
-    within 1e-6 of each tile's sum of |x|, and two calls are bit-equal. With
-    no chunk, K9a launches nothing and B and V give zeros; (40, 1) is one
-    tile of 40 chunks, (3, 9) and (120, 3) hold tiles that no chunk visits."""
+    within 1e-6 of each tile's sum of |x|; two calls of K9b, and of K9v, are
+    bit-equal. With no chunk, K9a launches nothing and B and V give zeros;
+    (40, 1) is one tile of 40 chunks (K9b's ring of 3 slots then uses a slot
+    up to 14 times, so its barrier parity wraps), (3, 9) and (120, 3) hold
+    tiles that no chunk visits; (129, 17) and (130, 9) pass the search's
+    fan-out of 128 and end one tile past a block of K9v's 8 warp-tiles."""
     packed, tiles = _k9_inputs(q, n_tiles, q)
     pc, tc = packed.to(cuda), tiles.to(cuda)
     before = (micro_bench.variant_a.launches, micro_bench.variant_b.launches,
@@ -669,25 +672,70 @@ def test_micro_bench_kernels_match_plain(cuda, q, n_tiles):
     assert bool(((v.cpu() - v_p).abs() <= 1e-6 * mag).all())
     assert not v.cpu()[mag == 0].any()
     assert torch.equal(micro_bench.variant_vmem_resident(q, n_tiles, pc, tc), v)
+    img2, tau2 = micro_bench.variant_b(q, n_tiles, pc, tc)
+    assert torch.equal(img2, img) and torch.equal(tau2, tau)
 
 
-@pytest.mark.parametrize("variant", ["a", "vmem_resident"])
+@pytest.mark.parametrize("variant", ["a", "b", "vmem_resident"])
 def test_micro_bench_kernels_need_16_byte_alignment(cuda, variant):
-    """K9a and K9v read ``packed`` 16 bytes at a time: a view 4 bytes into
-    its buffer is refused before any launch."""
+    """K9a, K9b and K9v read ``packed`` 16 bytes at a time: a view 4 bytes
+    into its buffer is refused before any launch."""
     packed, tiles = _k9_inputs(12, 5, 0)
     buf = torch.empty(packed.numel() + 1, device=cuda)
     view = buf[1:].view(packed.shape)
     view.copy_(packed.to(cuda))
     args = (12, view, tiles.to(cuda)) if variant == "a" else (12, 5, view, tiles.to(cuda))
+    fn = getattr(micro_bench, f"variant_{variant}")
+    before = fn.launches
     with pytest.raises(ValueError, match="16-byte aligned"):
-        getattr(micro_bench, f"variant_{variant}")(*args)
+        fn(*args)
+    assert fn.launches == before
+
+
+_BAD_TILES_CHILD = """
+import numpy as np, torch
+from easygaussiansplatting_tpu_torch.probes import micro_bench as mb
+rng = np.random.default_rng(0)
+q, nt = 300, 9
+packed = torch.from_numpy(rng.normal(size=(16, q * 256)).astype(np.float32)).cuda()
+for tiles in (rng.integers(0, nt, q), np.sort(rng.integers(-5, nt + 5, q)),
+              np.full(q, 2**31 - 1), np.full(q, -2**31), rng.integers(-2**31, 2**31 - 1, q)):
+    t = torch.from_numpy(tiles.astype(np.int32)).cuda()
+    img, tau = mb.variant_b(q, nt, packed, t)
+    v = mb.variant_vmem_resident(q, nt, packed, t)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(img).all() and torch.isfinite(v).all()) and bool((tau == 1).all())
+print("in bounds ok")
+"""
+
+
+def test_micro_bench_kernels_stay_in_bounds_on_bad_tiles(cuda):
+    """Unsorted, out-of-range and extreme ``tiles`` leave K9b's and K9v's sums
+    unspecified (the plain versions raise), but every read stays inside
+    ``packed`` and ``tiles``: the calls end without a fault, with finite
+    sums and K9b's tau all ones. K9b's bulk copies wait on barriers, so the
+    calls run in a child process under a timeout of their own."""
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", _BAD_TILES_CHILD], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and "in bounds ok" in res.stdout, res.stdout + res.stderr
+
+
+def test_micro_bench_tile_sums_kernel_info(cuda):
+    """K9b as compiled: no spills, and the script's 2,170 tiles (a warp
+    each) fit the card's resident blocks in one wave."""
+    info = micro_bench.kernel_info("b")
+    assert info["local_bytes"] == 0, info
+    assert info["threads"] == 32 * info["tiles_per_block"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-micro_bench.N_TILES // info["tiles_per_block"])
+    assert blocks <= info["blocks_per_sm"] * n_sm, info
 
 
 def test_micro_bench_vmem_resident_kernel_info(cuda):
     """K9v as compiled: no spills, and the script's 2,170 tiles (a warp
     each) fit the card's resident blocks in one wave."""
-    info = micro_bench.kernel_info()
+    info = micro_bench.kernel_info("vmem_resident")
     assert info["local_bytes"] == 0, info
     assert info["threads"] == 32 * info["tiles_per_block"]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count

@@ -51,9 +51,13 @@ def _inputs(q, n_tiles, seed, skip=()):
     return packed, tiles
 
 
-# (q, n_tiles, seed, tiles no chunk visits); the last two put 40 chunks in
-# one tile, alone or between two empty tiles
-CASES = [(12, 5, 0, ()), (40, 9, 1, (3, 8)), (40, 1, 2, ()), (40, 3, 2, (0, 2))]
+# (q, n_tiles, seed, tiles no chunk visits); (40, 1) and (40, 3) put 40
+# chunks in one tile, alone or between two empty tiles; the last four are
+# the card's block edges (9 and 17 tiles: one past a block of 8 warp-tiles)
+# at q = 129 and 130, just past the 128-ary search's fan-out, with the first
+# or the last tile empty
+CASES = [(12, 5, 0, ()), (40, 9, 1, (3, 8)), (40, 1, 2, ()), (40, 3, 2, (0, 2)),
+         (129, 9, 3, (8,)), (130, 17, 4, (0,)), (129, 17, 5, (16,)), (130, 9, 6, ())]
 
 
 @pytest.mark.parametrize("q,n_tiles,seed,skip", CASES)
@@ -175,6 +179,13 @@ def test_k9_wrappers_refuse_bad_inputs(case, variant):
     fn = getattr(micro_bench, f"variant_{variant}")
     with pytest.raises(ValueError):
         fn(12, 5, packed, tiles)
+
+
+def test_k9_kernel_info_refuses_an_unknown_variant():
+    """Only B and V have a compiled kernel to describe; the check comes
+    before the library is built, so it holds without the card."""
+    with pytest.raises(ValueError, match="variant"):
+        micro_bench.kernel_info("a")
 
 
 def test_k9a_refuses_unsorted_tiles():
