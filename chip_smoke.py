@@ -50,7 +50,21 @@ gaussians, SH degree 3, 979x546, max_patches 557,056, max_rows 229,376):
   --preview --profile --debug-nans, the eval CLI on the train CLI's
   final.npy, the eval's per-view function on the driver's final pool
   against the 4 views at full width, and the gradient gate
-  (``verify_gradients``, 36 checks) in a subprocess.
+  (``verify_gradients``, 36 checks) in a subprocess;
+* the COLMAP path: the bench scene written as a COLMAP scene under
+  build/smoke_colmap/ (one PINHOLE camera, the 4 poses, each photo the
+  port's render at 1958x1092 with 0 patches dropped, written as PNG, and
+  the 65,536 positions jittered as SfM points), built host libraries
+  (native/colmap_reader.cc with the PNG unfilter by g++, the nvJPEG
+  decoder by nvcc), the scene loaded at 0.5 by the native and the Python
+  readers (equal to each other, cameras within 1e-9 of the scene's,
+  photos bit-equal to the CPU path's decode and resize and within
+  PHOTO_PSNR_MIN of the direct 979x546 renders, decoded by the port's PNG
+  decoder and not PIL); nvJPEG on every committed JPEG fixture within its
+  limits of PIL's decode, with planted faults refused; the PNG fixtures
+  and the CUDA resize bit-equal to PIL's; then the train CLI with --path
+  (2 epochs, 8 steps, in this process so that K1-K6's launches are counted
+  from 0), the eval CLI and the render CLI with --path.
 
 Each path's (or route's, or probe's) kernel launch counts are set to 0 just
 before it runs and read just after. The render's, the step's and the
@@ -72,9 +86,11 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -83,6 +99,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from easygaussiansplatting_tpu_torch.data import colmap, image_io, native_loader
+from easygaussiansplatting_tpu_torch.data.dataset import (
+    load_colmap_dataset,
+    load_image,
+    points_to_gaussians,
+)
+from easygaussiansplatting_tpu_torch.data.fixtures import rotmat2qvec, write_colmap_scene
+from easygaussiansplatting_tpu_torch.data.make_io_fixtures import (
+    FIXTURES,
+    JPEGS,
+    PNGS,
+    RATES,
+    planted_faults,
+)
 from easygaussiansplatting_tpu_torch.data.synthetic import make_synthetic_scene
 from easygaussiansplatting_tpu_torch.eval import evaluate_views
 from easygaussiansplatting_tpu_torch.models.convert import gaussians_from_numpy
@@ -110,8 +140,9 @@ from easygaussiansplatting_tpu_torch.train.loop import (
     train,
 )
 from easygaussiansplatting_tpu_torch.probes import ab, exp_dma_stream, micro_bench
+from easygaussiansplatting_tpu_torch.train.__main__ import main as train_main
 from easygaussiansplatting_tpu_torch.train.optimizer import adam_init
-from easygaussiansplatting_tpu_torch.utils.image import psnr
+from easygaussiansplatting_tpu_torch.utils.image import psnr, to_uint8
 
 ROOT = Path(__file__).resolve().parent
 
@@ -129,6 +160,22 @@ LEX_MAX_PATCHES = 2_097_152
 # K3 also on rows far longer than binning's: [rows, m]
 LONG_SCANS = ((2, 2**21), (1, 2**24))
 DRIVER_EPOCHS, DRIVER_CAPACITY = 4, 131072
+# The COLMAP phase: the bench scene written as a COLMAP scene whose photos
+# are the port's renders at twice the size (1958x1092), loaded at rate 0.5
+# back to 979x546. A 2x render bins about 4x view 0's 512,134 patches.
+COLMAP_DIR = ROOT / "build" / "smoke_colmap"
+COLMAP_RATE = 0.5
+PHOTO_MAX_PATCHES = 2**22
+# SfM points as scripts/bench_scene.py jitters its init (seed 7, N(0, 0.01))
+SFM_SEED, SFM_JITTER = 7, 0.01
+# cameras read back from the scene against the scene's own, per field:
+# |got - want| <= CAMERA_REL * max|want|
+CAMERA_REL = 1e-9
+# each photo, decoded and resized 0.5 on the card, against the direct
+# 979x546 render of its view: a check that decode and resize are sound at
+# full size (measured 47.98-48.14 dB on an NVIDIA H100 80GB HBM3 at 700 W;
+# PERF.md section 6)
+PHOTO_PSNR_MIN = 45.0
 
 # Published H100 SXM peaks (NVIDIA data sheet): device memory and FP32
 # outside the tensor cores. INT32 adds are counted at half the FP32 rate
@@ -1766,6 +1813,223 @@ def phase_eval(device, keep):
     return lines
 
 
+def colmap_scene(device):
+    """Writes COLMAP_DIR from the bench scene (SH degree 3, DC from the
+    scene): one PINHOLE camera of the views' intrinsics doubled, the
+    N_VIEWS poses as quaternions, each view's photo the port's kernel
+    render at 1958x1092 (0 patches or rows dropped) written by save_png,
+    and the 65,536 positions jittered as SfM points with colours quantised
+    from SH0. Returns (the scene's 979x546 cameras, the direct renders at
+    that size, the points, lines)."""
+    params, cams = scene_params(device, sh_random=False)
+    args = [params[k] for k in ("pws", "shs", "alphas", "scales", "rots")]
+    intr = {(float(c.fx), float(c.fy), float(c.cx), float(c.cy)) for c in cams}
+    require(len(intr) == 1, f"the views do not share one camera: {intr}")
+    fx, fy, cx, cy = (np.float64(v) for v in next(iter(intr)))
+    cameras = {1: colmap.ColmapCamera(1, "PINHOLE", 2 * WIDTH, 2 * HEIGHT,
+                                      2.0 * np.array([fx, fy, cx, cy]))}
+    images, photos, direct, lines = {}, {}, [], []
+    t0 = time.perf_counter()
+    for i, cam in enumerate(cams):
+        big = dataclasses.replace(cam, fx=2 * cam.fx, fy=2 * cam.fy, cx=2 * cam.cx,
+                                  cy=2 * cam.cy, width=2 * WIDTH, height=2 * HEIGHT)
+        img, aux = render(*args, big, sh_degree=3, max_patches=PHOTO_MAX_PATCHES,
+                          max_rows=PHOTO_MAX_PATCHES, need_grads=False, device=device)
+        bn = aux["binning"]
+        require(int(bn["n_dropped"]) == 0 and int(bn["rows_dropped"]) == 0,
+                f"photo {i} drops {int(bn['n_dropped'])} patches / {int(bn['rows_dropped'])} "
+                f"rows at max_patches {PHOTO_MAX_PATCHES}")
+        lines.append(f"photo {i}: {2 * WIDTH}x{2 * HEIGHT}, {int(bn['total'])} patches, "
+                     f"{int(bn['total_rows'])} rows, 0 dropped")
+        name = f"view{i}.png"
+        photos[name] = to_uint8(img.cpu().numpy())
+        images[i + 1] = colmap.ColmapImage(i + 1, rotmat2qvec(cam.Rcw),
+                                           np.asarray(cam.tcw, np.float64), 1, name)
+        direct.append(render(*args, cam, sh_degree=3, max_patches=MAX_PATCHES,
+                             max_rows=MAX_ROWS, need_grads=False, device=device)[0])
+    scene = make_synthetic_scene(seed=SEED, n_gaussians=N_GAUSSIANS, n_cams=N_VIEWS,
+                                 width=WIDTH, height=HEIGHT, log_scale_mean=-3.6)
+    rng = np.random.default_rng(SFM_SEED)
+    xyz = scene["pws"] + rng.normal(scale=SFM_JITTER, size=scene["pws"].shape)
+    rgb = np.clip((scene["shs"] * 0.28209479177387814 + 0.5) * 255, 0, 255).astype(np.uint8)
+    if COLMAP_DIR.exists():
+        shutil.rmtree(COLMAP_DIR)
+    write_colmap_scene(COLMAP_DIR, cameras, images, xyz, rgb, photos)
+    lines.append(f"wrote {COLMAP_DIR.relative_to(ROOT)} ({len(photos)} photos, "
+                 f"{len(xyz)} points) in {time.perf_counter() - t0:.2f} s")
+    return cams, direct, (xyz, rgb), lines
+
+
+def _cam_close(got, want):
+    for f in ("Rcw", "tcw", "fx", "fy", "cx", "cy"):
+        a, b = np.asarray(getattr(got, f), np.float64), np.asarray(getattr(want, f), np.float64)
+        if np.abs(a - b).max() > CAMERA_REL * np.abs(b).max():
+            return False
+    return (got.width, got.height) == (want.width, want.height)
+
+
+def phase_colmap(device, smi):
+    """The COLMAP path at full width: the scene of :func:`colmap_scene`
+    loaded at COLMAP_RATE with the native and the Python readers, held to
+    each other, to the scene's cameras, to the CPU path's decode and resize
+    (bit-equal) and to the direct renders (PSNR_MIN); nvJPEG on every JPEG
+    fixture within its limits of PIL's decode, with planted faults refused;
+    the PNG fixtures and the CUDA resize bit-equal to PIL's; then the train
+    CLI with --path in this process (its kernel launches counted from 0),
+    and the eval and render CLIs with --path."""
+    t0 = time.perf_counter()
+    native_loader.build(force=True)
+    native_loader.library()
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    image_io.build_nvjpeg(force=True)
+    image_io.nvjpeg_library()
+    t_nvjpeg = time.perf_counter() - t0
+    cams, direct, (xyz, rgb), lines = colmap_scene(device)
+    lines.insert(0, f"host libraries built from source: native readers and PNG unfilter (g++) "
+                    f"{t_native:.2f} s, nvJPEG decoder (nvcc -lnvjpeg) {t_nvjpeg:.2f} s")
+    # an untimed load first: the first one pays for the CUDA ops' first use
+    load_colmap_dataset(COLMAP_DIR, resize_rate=COLMAP_RATE, cache_points=False,
+                        use_native=True, device=device)
+    pngs_before = image_io.decode_png.calls
+    loads = {}
+    for native in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds = load_colmap_dataset(COLMAP_DIR, resize_rate=COLMAP_RATE, cache_points=False,
+                                 use_native=native, device=device)
+        torch.cuda.synchronize()
+        loads[native] = (ds, time.perf_counter() - t0)
+    (nat, t_nat), (py, t_py) = loads[True], loads[False]
+    require(image_io.decode_png.calls - pngs_before == 2 * N_VIEWS,
+            "the port's PNG decoder did not decode every photo")
+    require("PIL" not in sys.modules, "PIL was imported")
+    require(len(nat) == N_VIEWS and len(py) == N_VIEWS, "a load lost views")
+    for a, b in zip(nat.cameras, py.cameras):
+        require(all(np.array_equal(np.asarray(getattr(a, f)), np.asarray(getattr(b, f)))
+                    for f in ("Rcw", "tcw", "fx", "fy", "cx", "cy", "width", "height", "id")),
+                "the native and Python readers give different cameras")
+    require(all(np.array_equal(nat.gs[k], py.gs[k]) for k in nat.gs.dtype.names)
+            and nat.scene_size == py.scene_size,
+            "the native and Python readers give different gaussians or scene_size")
+    require(all(_cam_close(a, b) for a, b in zip(nat.cameras, cams)),
+            f"the loaded cameras differ from the scene's by more than {CAMERA_REL} relative")
+    psnrs = []
+    for i, (a, b, want) in enumerate(zip(nat.images, py.images, direct)):
+        cpu = load_image(nat.image_paths[i], COLMAP_RATE, device="cpu")
+        require(a.shape == (3, HEIGHT, WIDTH) and torch.equal(a, b)
+                and torch.equal(a.cpu(), cpu),
+                f"photo {i} on the card differs from the CPU path's decode and resize")
+        psnrs.append(float(psnr(a, torch.clamp(want, 0, 1))))
+    lines.append(f"COLMAP load at {COLMAP_RATE} ({smi}): native readers {t_nat:.3f} s, Python "
+                 f"readers {t_py:.3f} s for {N_VIEWS} photos and {len(xyz)} points; cameras, "
+                 f"gaussians and scene_size ({nat.scene_size!r}) equal between the two, cameras "
+                 f"within {CAMERA_REL} of the scene's, images bit-equal to the CPU path's")
+    lines.append("photo PSNR against the direct 979x546 render (dB): "
+                 + ", ".join(f"{v:.3f}" for v in psnrs) + f" (limit {PHOTO_PSNR_MIN})")
+    require(min(psnrs) >= PHOTO_PSNR_MIN, f"a photo's PSNR is below {PHOTO_PSNR_MIN} dB")
+
+    # the photo path's own times, each per image
+    data = nat.image_paths[0].read_bytes()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        pixels, mode = image_io.decode_png(data)
+    png_ms = (time.perf_counter() - t0) / 5 * 1e3
+    full = torch.from_numpy(pixels).to(device)
+    size = image_io.resized_size(full.shape[1], full.shape[0], COLMAP_RATE)
+    image_io.pillow_resize(full, mode, size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        image_io.pillow_resize(full, mode, size)
+    torch.cuda.synchronize()
+    resize_ms = (time.perf_counter() - t0) / 5 * 1e3
+    t0 = time.perf_counter()
+    points_to_gaussians(xyz, rgb)
+    kd_s = time.perf_counter() - t0
+    lines.append(f"photo path ({smi}): PNG decode {png_ms:.2f} ms per 1958x1092 photo (host: "
+                 f"zlib and the C unfilter), resize to 979x546 on the card {resize_ms:.3f} ms "
+                 f"per photo, cKDTree init of {len(xyz)} points {kd_s:.3f} s")
+
+    ref = np.load(FIXTURES / "reference.npz")
+    for name in sorted(JPEGS):
+        data = (FIXTURES / name).read_bytes()
+        got = image_io.decode_jpeg_cuda(data, device)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            image_io.decode_jpeg_cuda(data, device)
+        ms = (time.perf_counter() - t0) / 10 * 1e3
+        got, want = got.cpu().numpy().astype(np.int32), ref[f"decode/{name}"].astype(np.int32)
+        worst, mean = int(np.abs(got - want).max()), float(np.abs(got - want).mean())
+        faults = {}
+        for fault, bad in planted_faults(got.astype(np.uint8)).items():
+            d = np.abs(bad.astype(np.int32) - want)
+            faults[fault] = (int(d.max()), float(d.mean()))
+            require(d.max() > image_io.NVJPEG_MAX_ABS or d.mean() > image_io.NVJPEG_MEAN_ABS,
+                    f"nvJPEG's limits accept the planted fault '{fault}' on {name}")
+        lines.append(f"nvJPEG {name} {got.shape[1]}x{got.shape[0]} ({smi}): {ms:.3f} ms a "
+                     f"decode, max |diff| to PIL {worst} levels, mean {mean:.4f} (limits "
+                     f"{image_io.NVJPEG_MAX_ABS}, {image_io.NVJPEG_MEAN_ABS}); planted faults "
+                     + ", ".join(f"{k} {v[0]}/{v[1]:.3f}" for k, v in faults.items()))
+        require(worst <= image_io.NVJPEG_MAX_ABS and mean <= image_io.NVJPEG_MEAN_ABS,
+                f"nvJPEG's decode of {name} is off PIL's by {worst} levels, mean {mean:.4f}")
+        for rate in RATES:
+            want = ref[f"resize{rate}/{name}"]
+            dec = torch.from_numpy(ref[f"decode/{name}"]).to(device)
+            out = image_io.pillow_resize(dec, "RGB", (want.shape[1], want.shape[0]))
+            require(np.array_equal(out.cpu().numpy(), want),
+                    f"the CUDA resize of {name} at {rate} is not PIL's")
+    for name in sorted(PNGS):
+        for rate in (1.0,) + RATES:
+            want = ref[("decode/" if rate == 1.0 else f"resize{rate}/") + name]
+            got = image_io.load_rgb8(FIXTURES / name, rate, device)
+            require(np.array_equal(got.cpu().numpy(), want),
+                    f"the PNG fixture {name} at {rate} on the card is not PIL's")
+    lines.append(f"PNG fixtures {sorted(PNGS)} bit-equal to PIL at 1.0 and {RATES} on the card, "
+                 f"and the CUDA resize of the JPEG fixtures' PIL decodes bit-equal to PIL's")
+
+    out = ROOT / "build" / "smoke_colmap_train"
+    for w in WRAPPERS.values():
+        w.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        history = train_main(["--path", str(COLMAP_DIR), "--resize-rate", str(COLMAP_RATE),
+                              "--epochs", "2", "--save-every", "2", "--out", str(out)])
+    seconds = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    losses = history["loss"]
+    lines += [f"train CLI --path ({seconds:.1f} s, in this process): " + ln
+              for ln in log.getvalue().strip().splitlines()[-4:]]
+    lines.append(f"train CLI --path launches over {len(losses) * N_VIEWS} steps: {launches}")
+    require(all(launches[k] > 0 for k in STEP_KERNELS),
+            f"a kernel was not launched by the train CLI: {launches}")
+    require(all(launches[k] == 0 for k in ROUTE_KERNELS),
+            f"a sort-route kernel ran on the default route: {launches}")
+    require(len(losses) == 2 and np.isfinite(losses).all() and losses[1] < losses[0],
+            f"the train CLI's epoch losses are not finite and falling: {losses}")
+    require(sum(history["overflow_steps"]) == 0,
+            f"the train CLI dropped patches or rows: {history['overflow_steps']}")
+
+    res, seconds = run_module("eval", "--path", str(COLMAP_DIR), "--resize-rate",
+                              str(COLMAP_RATE), "--gs", str(out / "final.npy"))
+    require(res.returncode == 0, f"eval CLI --path failed:\n{res.stdout}\n{res.stderr}")
+    last = res.stdout.strip().splitlines()[-1]
+    found = re.match(rf"mean over {N_VIEWS} views: psnr (\S+)", last)
+    require(found is not None and np.isfinite(float(found.group(1))),
+            f"eval CLI --path printed no finite mean PSNR: {last}")
+    lines.append(f"eval CLI --path ({seconds:.1f} s): {last}")
+    png = ROOT / "build" / "smoke_colmap_render.png"
+    res, seconds = run_module("render", "--path", str(COLMAP_DIR), "--cam-index", "1",
+                              "--resize-rate", str(COLMAP_RATE), "--backend", "cuda", "--gs",
+                              str(out / "final.npy"), "--out", str(png))
+    require(res.returncode == 0, f"render CLI --path failed:\n{res.stdout}\n{res.stderr}")
+    shape = image_io.decode_png(png.read_bytes())[0].shape
+    require(shape == (HEIGHT, WIDTH, 3), f"render CLI --path wrote a {shape} image")
+    lines.append(f"render CLI --path ({seconds:.1f} s): {res.stdout.strip().splitlines()[-1]}")
+    return lines
+
+
 def print_timing(entry):
     lib = "none" if entry["library_ms"] is None else f"{entry['library_ms']:.4f} ms"
     print(f"{entry['name']}: {entry['ms']:.4f} ms by CUDA events ({entry['call_ms']:.4f} ms "
@@ -1859,6 +2123,8 @@ def main():
                   phase_eval_cli, phase_gate):
         for line in phase():
             print(line, flush=True)
+    for line in phase_colmap(device, smi):
+        print(line, flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -10,10 +10,13 @@ kernel keeps a plain PyTorch version beside it: a wrapper takes the plain
 version for CPU tensors and launches the kernel for CUDA tensors.
 
 Ported so far (the forward render, the training step, the epoch driver,
-the gradient gate, eval, and every Pallas kernel of the repository):
+the gradient gate, eval, COLMAP scenes from photos on disk, and every
+Pallas kernel of the repository):
   utils/{sh,activations,quaternion,schedule,image,envflag,device}.py,
   models/{camera,gaussians,convert}.py, data/{fixtures,synthetic,gau_io}.py,
-  ops/{stages,binning,blend,rasterize_tiled,rasterize,loss}.py,
+  data/{colmap,native_loader,image_io,dataset}.py (with native/png_unfilter.cc,
+  csrc/nvjpeg_decode.cpp and the data/io_fixtures/ of make_io_fixtures.py),
+  ops/{stages,binning,blend,rasterize_tiled,rasterize,rasterize_ref,loss}.py,
   ops/kernels/{preprocess,scan,rasterize,sort,radix}.py (K1-K8),
   train/{config,optimizer,density,loop,checkpoint}.py, golden/ (a copy of
   the float64 oracle), probes/{micro_bench,exp_dma_stream}.py (K9, K10),
@@ -21,7 +24,8 @@ the gradient gate, eval, and every Pallas kernel of the repository):
   verify_gradients.py.
 
 This package never imports jax nor easygaussiansplatting_tpu; only the tests
-import both.
+import both. PIL is imported only to decode JPEG on the CPU
+(data/image_io.py) and to write the fixtures (data/make_io_fixtures.py).
 """
 
 __version__ = "0.1.0"

@@ -2,10 +2,16 @@
 
 Port of easygaussiansplatting_tpu/data/fixtures.py (numpy on both sides, so
 the arrays are bit-equal): the reference's 4-Gaussian scene and its 32x16
-test camera.
+test camera. Also the kernels' edge cases (below), and a COLMAP scene
+writer (:func:`write_colmap_scene`) for the tests and chip_smoke.py.
 """
 
+from pathlib import Path
+
 import numpy as np
+
+from easygaussiansplatting_tpu_torch.data import colmap
+from easygaussiansplatting_tpu_torch.utils.image import save_png
 
 
 def example_gaussians(dtype=np.float64):
@@ -190,3 +196,71 @@ def preprocess_case(n, deg, seed=0):
               "alphas": 1 / (1 + np.exp(-rng.normal(size=n))),
               "scales": np.exp(rng.normal(size=(n, 3)) * 0.4 - 2.2), "rots": rots}
     return {k: v.astype(np.float32) for k, v in arrays.items()}
+
+
+def degenerate_scene():
+    """The five gaussians of the JAX package's tests/test_robustness.py, as
+    float32 (pws, shs [5,3], alphas, scales, rots): a singular conic
+    (scales 1e-12, alpha 1), one far behind the camera, a giant splat near
+    it (scales 50, alpha 0.9999), an extremely anisotropic one (alpha
+    1e-8) and a plain one (alpha 0.99)."""
+    pws = np.array([
+        [0.0, 0.0, 0.0],
+        [0.0, 0.0, -100.0],
+        [1.03796196, 0.42017467, 4.87804612 - 4.67804612 + 0.0],
+        [0.2, 0.1, 0.3],
+        [0.5, -0.2, 0.1],
+    ], np.float32)
+    rots = np.tile(np.array([[1.0, 0, 0, 0]], np.float32), (5, 1))
+    scales = np.array([
+        [1e-12, 1e-12, 1e-12],
+        [0.1, 0.1, 0.1],
+        [50.0, 50.0, 50.0],
+        [1e-6, 10.0, 1e-6],
+        [0.05, 0.05, 0.05],
+    ], np.float32)
+    alphas = np.array([1.0, 0.5, 0.9999, 1e-8, 0.99], np.float32)
+    shs = np.zeros((5, 3), np.float32)
+    shs[:, 0] = 1.0
+    return pws, shs, alphas, scales, rots
+
+
+def culled_scene(n=8):
+    """``n`` gaussians all behind the camera (tests/test_robustness.py's
+    all-culled training scene), as float32 (pws, shs, alphas, scales, rots)."""
+    rots = np.tile(np.array([[1.0, 0, 0, 0]], np.float32), (n, 1))
+    return (np.full((n, 3), -50.0, np.float32), np.ones((n, 3), np.float32),
+            np.full(n, 0.5, np.float32), np.full((n, 3), 0.1, np.float32), rots)
+
+
+def rotmat2qvec(R):
+    """Rotation matrix -> wxyz unit quaternion with w >= 0, the inverse of
+    ``colmap.qvec2rotmat`` (the symmetric-eigenvector method of COLMAP's
+    own scripts)."""
+    (rxx, ryx, rzx), (rxy, ryy, rzy), (rxz, ryz, rzz) = np.asarray(R, np.float64)
+    k = np.array([
+        [rxx - ryy - rzz, 0, 0, 0],
+        [ryx + rxy, ryy - rxx - rzz, 0, 0],
+        [rzx + rxz, rzy + ryz, rzz - rxx - ryy, 0],
+        [ryz - rzy, rzx - rxz, rxy - ryx, rxx + ryy + rzz]]) / 3.0
+    vals, vecs = np.linalg.eigh(k)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    return -q if q[0] < 0 else q
+
+
+def write_colmap_scene(root, cameras, images, xyz, rgb, photos=None):
+    """Write a COLMAP scene under ``root``: ``sparse/0/{cameras,images,
+    points3D}.bin`` from dicts of ``colmap.ColmapCamera`` and
+    ``colmap.ColmapImage`` and the points (xyz [N,3], rgb [N,3] uint8),
+    and ``images/<name>`` for each uint8 [H,W,3] array of ``photos`` (name
+    -> array) as an 8-bit RGB PNG (utils/image.py's ``save_png``)."""
+    root = Path(root)
+    sparse = root / "sparse" / "0"
+    sparse.mkdir(parents=True, exist_ok=True)
+    (root / "images").mkdir(exist_ok=True)
+    colmap.write_cameras_binary(sparse / "cameras.bin", cameras)
+    colmap.write_images_binary(sparse / "images.bin", images)
+    colmap.write_points3d_binary(sparse / "points3D.bin", xyz, rgb)
+    for name, rgb8 in (photos or {}).items():
+        save_png(root / "images" / name, rgb8)
+    return root

@@ -2,12 +2,14 @@
 
 Port of the repository's root eval.py, run as
 
+    python -m easygaussiansplatting_tpu_torch.eval --gs output/final.npy --path <colmap_dir>
     python -m easygaussiansplatting_tpu_torch.eval --gs output/final.npy --synthetic
     python -m easygaussiansplatting_tpu_torch.eval --gs output/final.npy --synthetic --device cpu
 
-The synthetic scene is the JAX CLI's (512 gaussians, 8 views at 128x96), its
-ground truth rendered by the port. Prints one line per view and the means,
-as the JAX CLI does. COLMAP scenes (``--path``) are not ported yet.
+``--path`` evaluates against a COLMAP scene's photos, loaded at
+``--resize-rate`` (default 0.25) by data/dataset.py. The synthetic scene is
+the JAX CLI's (512 gaussians, 8 views at 128x96), its ground truth rendered
+by the port. Prints one line per view and the means, as the JAX CLI does.
 """
 
 import argparse
@@ -15,6 +17,7 @@ import argparse
 import numpy as np
 import torch
 
+from easygaussiansplatting_tpu_torch.data.dataset import load_colmap_dataset
 from easygaussiansplatting_tpu_torch.data.gau_io import load_gs, recarray_to_arrays
 from easygaussiansplatting_tpu_torch.data.synthetic import make_synthetic_scene, render_gt_images
 from easygaussiansplatting_tpu_torch.ops.loss import ssim
@@ -47,20 +50,25 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--gs", required=True, help="trained gaussians (.ply/.npy)")
-    ap.add_argument("--path", help="COLMAP dataset directory (not ported yet)")
+    ap.add_argument("--path", help="COLMAP dataset directory")
     ap.add_argument("--synthetic", action="store_true")
+    ap.add_argument("--resize-rate", type=float, default=0.25)
     ap.add_argument("--backend", default="auto", choices=["auto", "cuda", "tiled"])
     ap.add_argument("--max-patches", type=int, default=2**20)
     ap.add_argument("--max-views", type=int, default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if not args.synthetic:
-        ap.error("need --synthetic (COLMAP scenes are not ported yet)")
-    dev = resolve_device(args.device)
-
-    scene = make_synthetic_scene(seed=0, n_gaussians=512, n_cams=8, width=128, height=96)
-    cameras = scene["cameras"]
-    images = render_gt_images(scene, device=dev)
+    if args.synthetic:
+        dev = resolve_device(args.device)
+        scene = make_synthetic_scene(seed=0, n_gaussians=512, n_cams=8, width=128, height=96)
+        cameras = scene["cameras"]
+        images = render_gt_images(scene, device=dev)
+    elif args.path:
+        dev = resolve_device(args.device)
+        ds = load_colmap_dataset(args.path, resize_rate=args.resize_rate, device=dev)
+        cameras, images = ds.cameras, ds.images
+    else:
+        ap.error("need --path or --synthetic")
 
     a = recarray_to_arrays(load_gs(args.gs))
     shs = a["shs"].reshape(len(a["pws"]), -1)

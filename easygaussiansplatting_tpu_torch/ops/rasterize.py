@@ -10,9 +10,12 @@ Backends:
   "tiled" — the plain PyTorch versions of all of them (ops/stages.py,
             torch.cumsum, ops/rasterize_tiled.py, the autograd VJP of the
             stages), on any device.
+  "dense" — the O(N*H*W) reference rasteriser of ops/rasterize_ref.py
+            after the plain stages, plain autograd, on any device: for
+            tests and tiny scenes only.
   "auto"  — "cuda" for CUDA tensors, "tiled" for CPU tensors.
 
-Both backends run the same two ``autograd.Function``s,
+"cuda" and "tiled" run the same two ``autograd.Function``s,
 :class:`PreprocessFunction` and :class:`RasterizeFunction`, with the kernels
 or their plain versions inside. With ``need_grads=True`` (the default, as in
 JAX) the render builds the autograd graph, and binning also returns the
@@ -24,6 +27,7 @@ take no gradient.
 
 import torch
 
+from easygaussiansplatting_tpu_torch.ops import stages
 from easygaussiansplatting_tpu_torch.ops.binning import bin_gaussians
 from easygaussiansplatting_tpu_torch.ops.kernels.preprocess import (
     PreprocessFunction,
@@ -34,7 +38,7 @@ from easygaussiansplatting_tpu_torch.ops.kernels.preprocess import (
 from easygaussiansplatting_tpu_torch.ops.kernels.rasterize import RasterizeFunction
 from easygaussiansplatting_tpu_torch.utils.device import resolve_device
 
-BACKENDS = ("auto", "cuda", "tiled")
+BACKENDS = ("auto", "cuda", "tiled", "dense")
 
 
 def resolve_backend(backend, device):
@@ -59,9 +63,17 @@ def raster_from_aux(us, cinv2ds, alphas, colors, depths, areas, valid, *,
     backend packs one from the attributes when none is given. With
     ``need_grads`` the image's gradient flows into the table.
 
-    Returns (image [3,H,W], aux with contrib, final_tau, n_patches, binning).
+    Returns (image [3,H,W], aux with contrib, final_tau, n_patches, binning;
+    the "dense" backend bins nothing and gives contrib and final_tau only).
     """
     backend = resolve_backend(backend, us.device)
+    if backend == "dense":
+        from easygaussiansplatting_tpu_torch.ops.rasterize_ref import rasterize_dense
+
+        with torch.set_grad_enabled(need_grads and torch.is_grad_enabled()):
+            image, contrib, final_tau = rasterize_dense(
+                us, cinv2ds, alphas, colors, depths, areas, valid, width=width, height=height)
+        return image, {"contrib": contrib, "final_tau": final_tau}
     use_kernels = backend == "cuda"
     if table is None:
         if use_kernels:
@@ -102,7 +114,8 @@ def render(pws, shs, alphas, scales, rots, cam, alive=None, us_offset=None, sh_d
 
     Returns (image [3,H,W], aux dict): the preprocess outputs (us, cinv2ds,
     colors, alphas, depths, areas, valid) plus contrib, final_tau, n_patches
-    and binning.
+    and binning. The "dense" backend runs ops/stages.py's ``preprocess`` and
+    gives all of its outputs, contrib and final_tau.
     """
     dev = resolve_device(device)
     backend = resolve_backend(backend, dev)
@@ -112,6 +125,17 @@ def render(pws, shs, alphas, scales, rots, cam, alive=None, us_offset=None, sh_d
     alphas = _as_param(alphas, dev).reshape(n)
     if alive is not None:
         alive = torch.as_tensor(alive, dtype=torch.bool, device=dev)
+    if backend == "dense":  # the plain stages, as JAX's render runs them for it
+        with torch.set_grad_enabled(need_grads and torch.is_grad_enabled()):
+            aux = stages.preprocess(pws, shs, alphas, scales, rots, cam, alive=alive,
+                                    sh_degree=sh_degree)
+            if us_offset is not None:
+                aux["us"] = aux["us"] + us_offset
+            image, raux = raster_from_aux(
+                *(aux[k] for k in ("us", "cinv2ds", "alphas", "colors", "depths", "areas",
+                                   "valid")),
+                width=cam.width, height=cam.height, backend=backend, need_grads=need_grads)
+        return image, {**aux, **raux}
     with torch.set_grad_enabled(need_grads and torch.is_grad_enabled()):
         table = PreprocessFunction.apply(pws, shs, alphas, scales, rots, cam, sh_degree,
                                          backend == "cuda")

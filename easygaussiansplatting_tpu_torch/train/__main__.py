@@ -2,13 +2,17 @@
 
 Port of the repository's root train.py, single device:
 
+    python -m easygaussiansplatting_tpu_torch.train --path <colmap_dir> [--resize-rate 0.25]
     python -m easygaussiansplatting_tpu_torch.train --synthetic
     python -m easygaussiansplatting_tpu_torch.train --synthetic --device cpu --epochs 1
     python -m easygaussiansplatting_tpu_torch.train --synthetic --resume output/checkpoint.npz
 
-The synthetic scene is the JAX CLI's: 512 gaussians, 8 views at 128x96, the
-ground truth rendered from it, and the training started from its positions
-with N(0, 0.03) noise and its colours halved. Writes ``epochNNNN.npy``
+``--path`` trains on a COLMAP scene (``sparse/0/*.bin`` and ``images/``),
+its photos decoded and resized on the device (data/dataset.py), started
+from its SfM points or from ``--gs``. The synthetic scene is the JAX CLI's:
+512 gaussians, 8 views at 128x96, the ground truth rendered from it, and
+the training started from its positions with N(0, 0.03) noise and its
+colours halved. Writes ``epochNNNN.npy``
 snapshots and ``checkpoint.npz`` every ``--save-every`` epochs and at the
 end, then ``final.npy`` and ``final.ply``, into ``--out``.
 
@@ -25,7 +29,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from easygaussiansplatting_tpu_torch.data.gau_io import save_pool
+from easygaussiansplatting_tpu_torch.data.dataset import load_colmap_dataset
+from easygaussiansplatting_tpu_torch.data.gau_io import load_gs, recarray_to_arrays, save_pool
 from easygaussiansplatting_tpu_torch.data.synthetic import make_synthetic_scene, render_gt_images
 from easygaussiansplatting_tpu_torch.models.gaussians import pool_from_arrays
 from easygaussiansplatting_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
@@ -36,8 +41,12 @@ from easygaussiansplatting_tpu_torch.utils.image import save_png, to_uint8
 
 
 def main(argv=None):
+    """Run the CLI on ``argv``; returns the epoch driver's history."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--path", help="COLMAP dataset directory")
+    ap.add_argument("--resize-rate", type=float, default=0.25,
+                    help="photo scale under --path (Pillow's bicubic resize)")
     ap.add_argument("--synthetic", action="store_true", help="train on the synthetic scene")
     ap.add_argument("--gs", help="initial gaussians (.ply/.npy) overriding a COLMAP scene's "
                                  "SfM points; read with --path only, as in train.py, so "
@@ -61,23 +70,31 @@ def main(argv=None):
     ap.add_argument("--debug-nans", action="store_true",
                     help="check every step's loss and gradients, raise on a non-finite value")
     args = ap.parse_args(argv)
-    if not args.synthetic:
-        ap.error("need --synthetic (COLMAP scenes are not ported yet)")
-    if args.gs:
-        print(f"warning: --gs {args.gs} is ignored: it replaces a COLMAP scene's SfM points, "
-              "and --synthetic starts from the scene's perturbed copy", flush=True)
-    dev = resolve_device(args.device)
-
-    scene = make_synthetic_scene(seed=args.seed, n_gaussians=512, n_cams=8, width=128,
-                                 height=96)
-    cameras = scene["cameras"]
-    scene_size = scene["scene_size"]
-    images = render_gt_images(scene, device=dev)
-    # perturbed init: recover the ground truth
-    gs = {k: scene[k] for k in ("pws", "rots", "scales", "alphas", "shs")}
-    rng = np.random.default_rng(args.seed)
-    gs["pws"] = gs["pws"] + rng.normal(scale=0.03, size=gs["pws"].shape)
-    gs["shs"] = gs["shs"] * 0.5
+    if args.synthetic:
+        if args.gs:
+            print(f"warning: --gs {args.gs} is ignored: it replaces a COLMAP scene's SfM "
+                  "points, and --synthetic starts from the scene's perturbed copy", flush=True)
+        dev = resolve_device(args.device)
+        scene = make_synthetic_scene(seed=args.seed, n_gaussians=512, n_cams=8, width=128,
+                                     height=96)
+        cameras = scene["cameras"]
+        scene_size = scene["scene_size"]
+        images = render_gt_images(scene, device=dev)
+        # perturbed init: recover the ground truth
+        gs = {k: scene[k] for k in ("pws", "rots", "scales", "alphas", "shs")}
+        rng = np.random.default_rng(args.seed)
+        gs["pws"] = gs["pws"] + rng.normal(scale=0.03, size=gs["pws"].shape)
+        gs["shs"] = gs["shs"] * 0.5
+    elif args.path:
+        dev = resolve_device(args.device)
+        print(f"loading {args.path} (resize {args.resize_rate}) ...", flush=True)
+        ds = load_colmap_dataset(args.path, resize_rate=args.resize_rate, device=dev)
+        cameras, images, scene_size = ds.cameras, ds.images, ds.scene_size
+        gs = recarray_to_arrays(load_gs(args.gs) if args.gs else ds.gs)
+        print(f"{len(cameras)} cameras, {len(gs['pws'])} initial gaussians, "
+              f"scene_size={scene_size:.2f}", flush=True)
+    else:
+        ap.error("need --path or --synthetic")
 
     config = TrainConfig(
         epochs=args.epochs, backend=args.backend, max_patches=args.max_patches,
@@ -136,9 +153,11 @@ def main(argv=None):
     save_pool(out / "final.npy", pool)
     save_pool(out / "final.ply", pool)  # official-3DGS layout for external viewers
     if history["loss"]:
-        log_fn(f"saved {out}/final.npy + .ply; last loss {history['loss'][-1]:.5f}")
+        log_fn(f"saved {out}/final.npy + .ply; last loss {history['loss'][-1]:.5f}; steps "
+               f"that dropped patches or rows: {sum(history['overflow_steps'])}")
     else:  # e.g. resumed at start_epoch >= epochs: nothing left to train
         log_fn(f"saved {out}/final.npy + .ply; no training steps ran")
+    return history
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """PyTorch port on the card: each CUDA kernel against its plain version, the
-kernel render path against the all-plain path, and the kernel training step
-against the all-plain step. Every test here needs a CUDA device and nvcc, and
-skips without one.
+kernel render path against the all-plain path, the kernel training step
+against the all-plain step, degenerate scenes through the kernels, and
+the photo path (nvJPEG within its limits of PIL's decode, the resize and
+the PNG decoder bit-equal to PIL) against the committed fixture archive.
+Every test here needs a CUDA device and nvcc, and skips without one.
 
 The file imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -16,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from easygaussiansplatting_tpu_torch.data import example_camera
+from easygaussiansplatting_tpu_torch.data import example_camera, image_io
+from easygaussiansplatting_tpu_torch.data.dataset import load_image
 from easygaussiansplatting_tpu_torch.data.fixtures import (
     PRE_BLOCK,
     PRE_EDGES,
@@ -24,10 +27,19 @@ from easygaussiansplatting_tpu_torch.data.fixtures import (
     SCAN_TILE,
     SEG_CASES,
     SEG_TILE,
+    culled_scene,
+    degenerate_scene,
     preprocess_case,
     scan_case,
     segment_case,
     stacked_tile,
+)
+from easygaussiansplatting_tpu_torch.data.make_io_fixtures import (
+    FIXTURES,
+    JPEGS,
+    PNGS,
+    RATES,
+    planted_faults,
 )
 from easygaussiansplatting_tpu_torch.data.synthetic import make_synthetic_scene
 from easygaussiansplatting_tpu_torch.models import Camera
@@ -815,3 +827,93 @@ def test_stream_sums_kernel_info(cuda):
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = -(-exp_dma_stream.Q_TOTAL // info["chunks_per_block"])
     assert blocks <= info["blocks_per_sm"] * n_sm, info
+
+
+def _fixture_ref():
+    return np.load(FIXTURES / "reference.npz")
+
+
+def _levels(got, want):
+    d = np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32))
+    return int(d.max()), float(d.mean())
+
+
+def _within_nvjpeg_limits(got, want):
+    worst, mean = _levels(got, want)
+    return worst <= image_io.NVJPEG_MAX_ABS and mean <= image_io.NVJPEG_MEAN_ABS
+
+
+@pytest.mark.parametrize("name", sorted(JPEGS))
+def test_nvjpeg_matches_pil_within_its_limits(cuda, name):
+    """nvJPEG's decode of each committed JPEG against PIL's (reference.npz)
+    within NVJPEG_MAX_ABS and NVJPEG_MEAN_ABS levels, and the same limits
+    refuse each planted fault; grey comes out replicated to RGB."""
+    want = _fixture_ref()[f"decode/{name}"]
+    got = image_io.decode_jpeg_cuda((FIXTURES / name).read_bytes(), cuda)
+    assert got.dtype == torch.uint8 and got.device.type == "cuda" and got.shape == want.shape
+    got = got.cpu().numpy()
+    assert _within_nvjpeg_limits(got, want), _levels(got, want)
+    for fault, bad in planted_faults(got).items():
+        assert not _within_nvjpeg_limits(bad, want), (fault, _levels(bad, want))
+    if name == "jpeg_gray.jpg":
+        assert (got[..., 0] == got[..., 1]).all() and (got[..., 1] == got[..., 2]).all()
+
+
+@pytest.mark.parametrize("name", sorted(JPEGS) + sorted(PNGS))
+def test_cuda_resize_and_png_decode_bit_equal_to_pil(cuda, name):
+    """The resize on CUDA tensors bit-equal to PIL's committed resizes (of
+    PIL's own decode), and load_rgb8 of each PNG on the card bit-equal to
+    PIL's decode and resizes and to the CPU path."""
+    ref = _fixture_ref()
+    for rate in RATES:
+        want = ref[f"resize{rate}/{name}"]
+        if name in JPEGS:
+            dec = torch.from_numpy(ref[f"decode/{name}"]).to(cuda)
+            got = image_io.pillow_resize(dec, "RGB", (want.shape[1], want.shape[0]))
+        else:
+            got = image_io.load_rgb8(FIXTURES / name, rate, cuda)
+            assert torch.equal(got.cpu(), image_io.load_rgb8(FIXTURES / name, rate, "cpu"))
+        assert got.device.type == "cuda" and np.array_equal(got.cpu().numpy(), want), rate
+    if name in PNGS:
+        got = load_image(FIXTURES / name, 1.0, device=cuda)
+        assert torch.equal(got.cpu(), load_image(FIXTURES / name, 1.0, device="cpu"))
+
+
+def test_load_image_on_cuda_takes_nvjpeg_for_jpeg(cuda):
+    calls = image_io.decode_jpeg_cuda.calls
+    img = load_image(FIXTURES / "jpeg_420.jpg", 0.5, device=cuda)
+    assert image_io.decode_jpeg_cuda.calls == calls + 1
+    assert img.shape == (3, 36, 48) and img.dtype == torch.float32 and img.device.type == "cuda"
+
+
+def test_degenerate_scene_through_the_kernels(cuda):
+    """tests/test_torch_robustness.py's scene through K1, K2, K4 and K5:
+    image, final_tau and every gradient finite, the image within the render
+    path's 1e-4 of the plain path and the gradients within the step's
+    1e-2 * max|plain| of the plain path's."""
+    wrappers = (preprocess.preprocess_fwd, preprocess.preprocess_bwd,
+                rasterize.rasterize_fwd, rasterize.rasterize_bwd)
+    runs = {}
+    for backend in ("cuda", "tiled"):
+        args = [torch.tensor(a, device=cuda, requires_grad=True) for a in degenerate_scene()]
+        before = [w.launches for w in wrappers]
+        img, aux = render(*args, CAM, backend=backend, max_patches=4096, sh_degree=0)
+        (img ** 2).sum().backward()
+        if backend == "cuda":
+            assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1, 1]
+        assert bool(torch.isfinite(img).all()) and bool(torch.isfinite(aux["final_tau"]).all())
+        for t, k in zip(args, KEYS):
+            assert bool(torch.isfinite(t.grad).all()), (backend, k)
+        runs[backend] = (img.detach(), [t.grad for t in args])
+    torch.testing.assert_close(runs["cuda"][0], runs["tiled"][0], atol=1e-4, rtol=0)
+    for got, want, k in zip(runs["cuda"][1], runs["tiled"][1], KEYS):
+        _close_to_scale(got, want, k, 1e-2)
+
+
+def test_all_culled_scene_through_the_kernels(cuda):
+    pws, shs, alphas, scales, rots = (torch.tensor(a, device=cuda) for a in culled_scene())
+    pws.requires_grad_(True)
+    img, _ = render(pws, shs, alphas, scales, rots, CAM, max_patches=4096, sh_degree=0)
+    img.sum().backward()
+    assert float(img.detach().abs().max()) == 0.0
+    assert float(pws.grad.abs().max()) == 0.0 and bool(torch.isfinite(pws.grad).all())

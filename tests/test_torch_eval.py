@@ -86,8 +86,13 @@ def test_eval_matches_jax_eval(trained_npy, capsys):
     np.testing.assert_allclose(rows[:, 1:], want[:, 1:], atol=1e-5, rtol=0)
 
 
-def test_eval_cli_refuses_colmap_scenes(trained_npy, capsys):
+def test_eval_cli_refuses_colmap_scenes(trained_npy, capsys, tmp_path):
+    """COLMAP scenes are ported (tests/test_torch_cli.py evaluates one): the
+    CLI refuses a run with neither --path nor --synthetic, as JAX eval.py
+    does, and a --path that holds no sparse model."""
     with pytest.raises(SystemExit) as exc:
-        port_eval.main(["--gs", str(trained_npy), "--path", "scene", "--device", "cpu"])
+        port_eval.main(["--gs", str(trained_npy), "--device", "cpu"])
     assert exc.value.code == 2
-    assert "COLMAP scenes are not ported yet" in capsys.readouterr().err
+    assert "need --path or --synthetic" in capsys.readouterr().err
+    with pytest.raises(OSError):  # the reader's: no cameras.bin to parse
+        port_eval.main(["--gs", str(trained_npy), "--path", str(tmp_path), "--device", "cpu"])
