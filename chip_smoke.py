@@ -64,7 +64,23 @@ gaussians, SH degree 3, 979x546, max_patches 557,056, max_rows 229,376):
   limits of PIL's decode, with planted faults refused; the PNG fixtures
   and the CUDA resize bit-equal to PIL's; then the train CLI with --path
   (2 epochs, 8 steps, in this process so that K1-K6's launches are counted
-  from 0), the eval CLI and the render CLI with --path.
+  from 0), the eval CLI and the render CLI with --path;
+* the time-to-PSNR benchmark (``bench_scene``, in this process): --smoke
+  for 6 epochs, K1-K6 launched exactly as often as its steps and renders
+  need; the full preset (100,000 ground-truth gaussians, 100 cameras at
+  979x546, an SfM-like init of 60,000 in a pool of 150,016), which must
+  reach PSNR 25 by epoch BENCH_EPOCH_CAP, with its curve, attribution,
+  overflow steps and peak device memory; --oracle-gt of both presets;
+  --realism for 2 epochs at full size;
+* the viewer: ``SceneRenderer`` on viewer_fps's scene (65,536 gaussians,
+  degree 3, 979x546, max_patches 573,440) with the bench views as dataset
+  cameras and a point cloud, every render mode, overlay toggle and cloud
+  mode, axes and grid and the drag preview, each frame within 1 level of
+  the all-plain path's (at most 0.1% of its pixels a level off) and
+  launching K1 once, K3's 3 calls and K4 once; the HTTP server on an
+  ephemeral port (PNG bodies decoded bit-equal to render()'s frames, 400,
+  404); viewer_fps; a 4-frame GIF turntable read back with struct; and the
+  training monitor over 2 epochs of train.
 
 Each path's (or route's, or probe's) kernel launch counts are set to 0 just
 before it runs and read just after. The render's, the step's and the
@@ -91,14 +107,19 @@ import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from easygaussiansplatting_tpu_torch import bench_scene, viewer_fps
 from easygaussiansplatting_tpu_torch.data import colmap, image_io, native_loader
 from easygaussiansplatting_tpu_torch.data.dataset import (
     load_colmap_dataset,
@@ -143,6 +164,9 @@ from easygaussiansplatting_tpu_torch.probes import ab, exp_dma_stream, micro_ben
 from easygaussiansplatting_tpu_torch.train.__main__ import main as train_main
 from easygaussiansplatting_tpu_torch.train.optimizer import adam_init
 from easygaussiansplatting_tpu_torch.utils.image import psnr, to_uint8
+from easygaussiansplatting_tpu_torch.viewer.headless import render_turntable, save_gif
+from easygaussiansplatting_tpu_torch.viewer.monitor import TrainingMonitor
+from easygaussiansplatting_tpu_torch.viewer.server import CLOUD_MODES, MODES, SceneRenderer, serve
 
 ROOT = Path(__file__).resolve().parent
 
@@ -2030,6 +2054,322 @@ def phase_colmap(device, smi):
     return lines
 
 
+# The time-to-PSNR benchmark (bench_scene): the frozen full preset, run as
+# its users run it (--epochs 60, whose length also sets the position
+# learning-rate schedule), reaches PSNR 25 at epoch 9 on the card (NVIDIA
+# H100 80GB HBM3 at 700 W; PERF.md section 6); the gate requires it by 1.5x
+# that epoch.
+BENCH_EPOCH_CAP = 14
+BENCH_SMOKE_EPOCHS = 6  # through the densify at epoch 5
+GIF_FRAMES = 4
+
+
+def bench_launches_expected(state, n_cams):
+    """Each kernel's launches in one bench_scene run that trained: K2, K5
+    and K6 once a step; K1 and K4 once a step and once a render (the ground
+    truth, the eval views after each epoch, the training loop's own eval at
+    its last epoch); K3 three times each of those."""
+    hist = state["history"]
+    steps = len(hist["loss"]) * n_cams
+    renders = n_cams + 4 * len(state["curve"]) + len(hist["psnr"])
+    one = steps + renders
+    return {"K1 preprocess_fwd": one, "K2 preprocess_bwd": steps, "K3 multi_cumsum": 3 * one,
+            "K4 rasterize_fwd": one, "K5 rasterize_bwd": steps, "K6 segmented_cumsum": steps}
+
+
+def run_bench_scene(*argv):
+    """bench_scene's main in this process on ``argv``, its stdout kept:
+    (its JSON lines as printed and parsed, the training state, the printed
+    lines, the launches, seconds, peak device memory in bytes)."""
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        lines, state = bench_scene.main(list(argv))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    printed = log.getvalue().strip().splitlines()
+    parsed = [json.loads(ln) for ln in printed if ln.startswith("{")]
+    require(parsed == json.loads(json.dumps(lines)),
+            f"bench_scene {argv}: its JSON lines do not parse back to what it returned")
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    return (parsed, state, printed, launches, seconds,
+            torch.cuda.max_memory_allocated())
+
+
+def check_bench_launches(label, state, launches, n_cams):
+    want = bench_launches_expected(state, n_cams)
+    got = {k: launches[k] for k in want}
+    require(got == want, f"{label}: launches {got}, the steps and renders need {want}")
+    require(all(launches[k] == 0 for k in ROUTE_KERNELS + K9_KERNELS + ("K10 stream_sums",)),
+            f"{label}: a kernel off the default path ran: {launches}")
+    return f"{label} launches {got}, as many as its steps and renders need"
+
+
+def phase_bench_scene(smi):
+    """bench_scene on the card: --smoke (in this process, its launches
+    counted from 0 and held to its steps and renders); the full preset,
+    which must reach PSNR 25 by epoch BENCH_EPOCH_CAP; --oracle-gt of both
+    presets; --realism for 2 epochs at full size."""
+    t_phase = time.perf_counter()
+    lines = []
+    full_cams = bench_scene.FULL[1]
+    parsed, state, printed, launches, seconds, _ = run_bench_scene(
+        "--smoke", "--epochs", str(BENCH_SMOKE_EPOCHS))
+    lines.append(f"bench_scene --smoke --epochs {BENCH_SMOKE_EPOCHS} ({seconds:.1f} s): "
+                 + printed[-1])
+    lines.append(check_bench_launches("bench_scene --smoke", state, launches, bench_scene.SMOKE[1]))
+    require([r["epoch"] for r in state["curve"]] == list(range(1, BENCH_SMOKE_EPOCHS + 1))
+            and set(parsed[0]) == {"attribution", "curve"}
+            and parsed[1]["metric"] == "time_to_psnr25",
+            f"bench_scene --smoke printed {parsed}")
+
+    parsed, state, printed, launches, seconds, peak = run_bench_scene()
+    gt_line = next(ln for ln in printed if ln.startswith("rendered "))
+    lines.append(f"bench_scene full preset ({smi}; {seconds:.1f} s in all): {gt_line}; "
+                 + next(ln for ln in printed if ln.startswith("init ")))
+    lines.append(f"  peak device memory (torch.cuda.max_memory_allocated): {peak} B")
+    for r in state["curve"]:
+        lines.append(f"  curve: {json.dumps(r)}")
+    lines.append(f"  overflow_steps per epoch: {[r['overflow_steps'] for r in state['curve']]}")
+    lines.append(f"  {json.dumps(parsed[0]['attribution'])}")
+    lines.append(f"  {json.dumps(parsed[1])}")
+    lines.append("  " + check_bench_launches("bench_scene full", state, launches, full_cams))
+    hit = state["epoch_hit"]
+    require(hit is not None and hit <= BENCH_EPOCH_CAP and parsed[1]["metric"] == "time_to_psnr25",
+            f"the full preset did not reach PSNR 25 by epoch {BENCH_EPOCH_CAP} "
+            f"(final {state['psnr']:.3f})")
+    lines.append(f"  PSNR 25 reached at epoch {hit} (cap {BENCH_EPOCH_CAP}), time_to_psnr25 "
+                 f"{parsed[1]['value']} s")
+
+    for argv in (("--oracle-gt",), ("--realism", "--oracle-gt")):
+        parsed, _, printed, launches, seconds, peak = run_bench_scene(*argv)
+        warn = [ln for ln in printed if ln.startswith("WARNING")]
+        lines.append(f"bench_scene {' '.join(argv)} ({seconds:.1f} s, peak {peak} B): "
+                     f"{json.dumps(parsed[0])}" + (f"; {warn[0]}" if warn else ""))
+        require(parsed[0]["metric"].startswith("oracle_gt_psnr")
+                and np.isfinite(parsed[0]["value"]), f"no oracle PSNR: {parsed}")
+        n_renders = full_cams + 4
+        require(launches["K1 preprocess_fwd"] == n_renders and launches["K2 preprocess_bwd"] == 0,
+                f"bench_scene {argv}: launches {launches}, {n_renders} renders need K1 "
+                f"{n_renders} and no K2")
+    parsed, state, printed, launches, seconds, peak = run_bench_scene("--realism", "--epochs", "2")
+    lines.append(f"bench_scene --realism --epochs 2 ({seconds:.1f} s, peak {peak} B): "
+                 + next(ln for ln in printed if ln.startswith("rendered ")) + "; "
+                 + json.dumps(parsed[1]))
+    lines.append("  " + check_bench_launches("bench_scene --realism", state, launches,
+                                             full_cams))
+    require(len(state["curve"]) == 2 and all(np.isfinite(r["psnr"]) for r in state["curve"]),
+            f"bench_scene --realism: {state['curve']}")
+    lines.append(f"bench_scene phase: {time.perf_counter() - t_phase:.1f} s")
+    return lines
+
+
+def frame_check(label, got, want):
+    """A viewer frame against the all-plain path's: within 1 level, at most
+    SLICE_MAX_BAD_SHARE of its pixels a level off."""
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    off = float((d > 0).any(-1).mean())
+    require(got.shape == want.shape and d.max() <= 1 and off <= SLICE_MAX_BAD_SHARE,
+            f"viewer frame {label}: max {d.max()} levels off the all-plain path on "
+            f"{off:.5f} of its pixels")
+    return f"max {d.max()} level, {off:.6f} of pixels off"
+
+
+def gif_blocks(data):
+    """(width, height, frame count, NETSCAPE loop count, delays in 1/100 s)
+    of a GIF89a, read with struct."""
+    require(data[:6] == b"GIF89a", f"not a GIF89a: {data[:6]!r}")
+    width, height, packed = struct.unpack("<HHB", data[6:11])
+    pos = 13 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+    frames, loop, delays = [], None, []
+
+    def sub_blocks(pos):
+        out = []
+        while data[pos]:
+            out.append(data[pos + 1:pos + 1 + data[pos]])
+            pos += 1 + data[pos]
+        return out, pos + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            label = data[pos + 1]
+            blocks, pos = sub_blocks(pos + 2)
+            if label == 0xFF and blocks[0] == b"NETSCAPE2.0":
+                loop = struct.unpack("<H", blocks[1][1:3])[0]
+            elif label == 0xF9:
+                delays.append(struct.unpack("<H", blocks[0][1:3])[0])
+        elif data[pos] == 0x2C:
+            fw, fh, fpacked = struct.unpack("<4xHHB", data[pos + 1:pos + 10])
+            frames.append((fw, fh))
+            pos += 10 + (3 << ((fpacked & 7) + 1) if fpacked & 0x80 else 0)
+            _, pos = sub_blocks(pos + 1)  # the LZW code size byte, then the data
+        else:
+            require(False, f"GIF block 0x{data[pos]:02x} at byte {pos}")
+    return width, height, frames, loop, delays
+
+
+def http_get(url):
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def viewer_scene(device):
+    """viewer_fps's scene (65,536 gaussians, SH padded to degree 3) with the
+    bench views as dataset cameras (random photos on their image planes)
+    and every 16th gaussian as a point cloud."""
+    g = viewer_fps.scene_gaussians(N_GAUSSIANS, WIDTH, HEIGHT)
+    cams = make_synthetic_scene(seed=SEED, n_gaussians=N_GAUSSIANS, n_cams=N_VIEWS, width=WIDTH,
+                                height=HEIGHT, log_scale_mean=-3.6)["cameras"]
+    rng = np.random.default_rng(SEED + 3)
+    photos = [rng.random((3, HEIGHT // 8, WIDTH // 8)).astype(np.float32) for _ in cams]
+    spread = float(np.percentile(np.linalg.norm(g["pws"] - g["pws"].mean(0), axis=1), 90))
+    cloud = {"pws": g["pws"][::16], "rots": g["rots"][::16],
+             "scales": np.full((len(g["pws"][::16]), 3), 0.002 * spread, np.float32),
+             "alphas": np.full(len(g["pws"][::16]), 0.9, np.float32),
+             "shs": g["shs"][::16, :3]}
+    kw = dict(dataset_cameras=cams, dataset_images=photos, cloud=cloud, marker_skip=1,
+              max_patches=viewer_fps.FULL[3], device=device)
+    return SceneRenderer(g, backend="cuda", **kw), SceneRenderer(g, backend="tiled", **kw), g
+
+
+def phase_viewer(device, smi):
+    """The viewer on the card: SceneRenderer frames of every mode and
+    toggle against the all-plain path, each launching K1 once, K3's 3 calls
+    and K4 once; the HTTP server (PNG bodies bit-equal to the frames, 400,
+    404); viewer_fps; a GIF turntable read back with struct; and the
+    training monitor over 2 epochs of train."""
+    t_phase = time.perf_counter()
+    lines = []
+    kern, plain, g = viewer_scene(device)
+    view = dict(azimuth=0.6, elevation=0.35, width=WIDTH, height=HEIGHT)
+    frames = [(f"mode={m} markers={mk}", dict(mode=m, markers=mk))
+              for m in MODES for mk in (False, True)]
+    frames += [(f"cloud_mode={cm}", dict(cloud=True, cloud_mode=cm)) for cm in CLOUD_MODES]
+    frames += [("axes and grid", dict(axes=True, grid=True)), ("lores", dict(lores=True))]
+    per_frame = {"K1 preprocess_fwd": 1, "K3 multi_cumsum": 3, "K4 rasterize_fwd": 1}
+    shots = {}
+    for label, kw in frames:
+        reset_launches()
+        got = kern.render(**view, **kw)
+        launches = {k: w.launches for k, w in WRAPPERS.items()}
+        require(launches == {k: per_frame.get(k, 0) for k in WRAPPERS},
+                f"viewer frame {label} launched {launches}")
+        want = plain.render(**view, **kw)
+        shots[label] = got
+        lines.append(f"viewer frame {label} {got.shape[1]}x{got.shape[0]}: "
+                     f"{frame_check(label, got, want)}; launches K1 1, K3 3, K4 1")
+    base = shots["mode=normal markers=False"]
+    require(not any(np.array_equal(base, shots[k])
+                    for k in ("mode=normal markers=True", "cloud_mode=rgb", "axes and grid")),
+            "an overlay toggle did not change the frame")
+
+    started = []
+    thread = threading.Thread(target=serve, args=(kern,),
+                              kwargs=dict(port=0, on_ready=started.append), daemon=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        thread.start()
+        for _ in range(600):
+            if started:
+                break
+            time.sleep(0.05)
+    require(bool(started), "the viewer server did not start")
+    url = f"http://127.0.0.1:{started[0].server_address[1]}"
+    try:
+        for query, kw in ((f"az=0.6&el=0.35&w={WIDTH}&h={HEIGHT}", dict(view)),
+                          (f"az=0.6&el=0.35&w={WIDTH}&h={HEIGHT}&lores=1&fmt=jpeg",
+                           dict(view, lores=True)),
+                          (f"az=1.2&el=0.2&w={WIDTH}&h={HEIGHT}&mode=inverse&markers=1&axes=1",
+                           dict(azimuth=1.2, elevation=0.2, width=WIDTH, height=HEIGHT,
+                                mode="inverse", markers=True, axes=True))):
+            t0 = time.perf_counter()
+            status, ctype, body = http_get(f"{url}/render?{query}")
+            ms = (time.perf_counter() - t0) * 1e3
+            require(status == 200 and ctype == "image/png", f"/render?{query}: {status} {ctype}")
+            pixels, mode = image_io.decode_png(body)
+            want = kern.render(**kw)
+            require(mode == "RGB" and np.array_equal(pixels, want),
+                    f"/render?{query}: the PNG body is not the frame render() gives")
+            lines.append(f"HTTP /render?{query}: 200 image/png, {len(body)} B in {ms:.1f} ms, "
+                         f"decoded {pixels.shape[1]}x{pixels.shape[0]} bit-equal to render()")
+        for path, code in (("/render?mode=wire", 400), ("/nope", 404)):
+            status, _, _ = http_get(url + path)
+            require(status == code, f"{path}: {status}, not {code}")
+        status, _, body = http_get(url + "/info")
+        require(status == 200 and json.loads(body)["n_gaussians"] == N_GAUSSIANS, "/info")
+        lines.append("HTTP /render?mode=wire: 400, /nope: 404, /info: 200")
+    finally:
+        started[0].shutdown()
+        thread.join(timeout=60)
+    require(not thread.is_alive(), "the viewer server did not stop")
+
+    del kern, plain
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        fps = viewer_fps.main([])
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    lines += [f"viewer_fps ({smi}): {ln}" for ln in out.getvalue().strip().splitlines()]
+    lines.append(f"viewer_fps peak device memory: {torch.cuda.max_memory_allocated() - held} B "
+                 f"above the {held} B held before it (torch.cuda.max_memory_allocated)")
+    n_frames = 2 * (1 + 3 * 10)
+    require(launches["K1 preprocess_fwd"] == n_frames and launches["K4 rasterize_fwd"] == n_frames
+            and launches["K3 multi_cumsum"] == 3 * n_frames,
+            f"viewer_fps: launches {launches} for {n_frames} frames")
+    require(all(np.isfinite(v[2]) and v[2] > 0 for v in fps.values()), f"viewer_fps: {fps}")
+
+    gif_path = ROOT / "build" / "smoke_turntable.gif"
+    reset_launches()
+    t0 = time.perf_counter()
+    turn = render_turntable(g, n_frames=GIF_FRAMES, width=640, height=480, device=device,
+                            max_patches=viewer_fps.FULL[3])
+    save_gif(gif_path, turn, fps=20)
+    seconds = time.perf_counter() - t0
+    require(preprocess.preprocess_fwd.launches == GIF_FRAMES
+            and rasterize.rasterize_fwd.launches == GIF_FRAMES,
+            f"turntable launches K1 {preprocess.preprocess_fwd.launches}, K4 "
+            f"{rasterize.rasterize_fwd.launches} for {GIF_FRAMES} frames")
+    data = gif_path.read_bytes()
+    width, height, gframes, loop, delays = gif_blocks(data)
+    require((width, height) == (640, 480) and gframes == [(640, 480)] * GIF_FRAMES
+            and loop == 0 and delays == [5] * GIF_FRAMES,
+            f"the turntable GIF reads {width}x{height}, frames {gframes}, loop {loop}, "
+            f"delays {delays}")
+    lines.append(f"turntable: {GIF_FRAMES} frames 640x480 rendered and written in {seconds:.2f} s, "
+                 f"GIF89a {len(data)} B, {GIF_FRAMES} image blocks, NETSCAPE loop 0, delay 50 ms")
+
+    pool, cams, gts, scene_size, cfg = train_setup(device)
+    cfg = dataclasses.replace(cfg, epochs=2)
+    mon = TrainingMonitor(cams[0], cfg, port=0, log_fn=lambda *_: None)
+    try:
+        t0 = time.perf_counter()
+        train(pool, cams, gts, cfg, scene_size, seed=SEED, log_fn=lambda *_: None,
+              eval_every=1, epoch_cb=mon.epoch_cb)
+        seconds = time.perf_counter() - t0
+        murl = f"http://127.0.0.1:{mon.port}"
+        status, _, body = http_get(murl + "/history")
+        hist = json.loads(body)
+        require(status == 200 and hist["epoch"] == 2 and len(hist["loss"]) == 2,
+                f"monitor /history: {status} {hist}")
+        status, ctype, body = http_get(murl + "/preview.png")
+        pixels, _ = image_io.decode_png(body)
+        require(status == 200 and ctype == "image/png" and pixels.shape == (HEIGHT, WIDTH, 3),
+                f"monitor /preview.png: {status} {ctype} {pixels.shape}")
+        lines.append(f"monitor: train 2 epochs x {N_VIEWS} views in {seconds:.2f} s; /history "
+                     f"epoch {hist['epoch']}, loss {[round(v, 6) for v in hist['loss']]}, psnr "
+                     f"{[round(p, 3) for _, p in hist['psnr']]}; /preview.png {len(body)} B "
+                     f"decodes to {pixels.shape[1]}x{pixels.shape[0]}")
+    finally:
+        mon.close()
+    lines.append(f"viewer phase: {time.perf_counter() - t_phase:.1f} s")
+    return lines
+
+
 def print_timing(entry):
     lib = "none" if entry["library_ms"] is None else f"{entry['library_ms']:.4f} ms"
     print(f"{entry['name']}: {entry['ms']:.4f} ms by CUDA events ({entry['call_ms']:.4f} ms "
@@ -2124,6 +2464,10 @@ def main():
         for line in phase():
             print(line, flush=True)
     for line in phase_colmap(device, smi):
+        print(line, flush=True)
+    for line in phase_bench_scene(smi):
+        print(line, flush=True)
+    for line in phase_viewer(device, smi):
         print(line, flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
 

@@ -10,9 +10,10 @@ kernel keeps a plain PyTorch version beside it: a wrapper takes the plain
 version for CPU tensors and launches the kernel for CUDA tensors.
 
 Ported so far (the forward render, the training step, the epoch driver,
-the gradient gate, eval, COLMAP scenes from photos on disk, and every
-Pallas kernel of the repository):
-  utils/{sh,activations,quaternion,schedule,image,envflag,device}.py,
+the gradient gate, eval, COLMAP scenes from photos on disk, the
+time-to-PSNR benchmark, the viewer, and every Pallas kernel of the
+repository):
+  utils/{sh,activations,quaternion,schedule,image,envflag,device,gif}.py,
   models/{camera,gaussians,convert}.py, data/{fixtures,synthetic,gau_io}.py,
   data/{colmap,native_loader,image_io,dataset}.py (with native/png_unfilter.cc,
   csrc/nvjpeg_decode.cpp and the data/io_fixtures/ of make_io_fixtures.py),
@@ -20,8 +21,9 @@ Pallas kernel of the repository):
   ops/kernels/{preprocess,scan,rasterize,sort,radix}.py (K1-K8),
   train/{config,optimizer,density,loop,checkpoint}.py, golden/ (a copy of
   the float64 oracle), probes/{micro_bench,exp_dma_stream}.py (K9, K10),
-  and the CLIs render.py, train/__main__.py, bench.py, eval.py and
-  verify_gradients.py.
+  viewer/{headless,server,monitor}.py with viewer/index.html, and the CLIs
+  render.py, train/__main__.py, bench.py, eval.py, verify_gradients.py,
+  bench_scene.py, gaussian_viewer.py, sh_demo.py and viewer_fps.py.
 
 This package never imports jax nor easygaussiansplatting_tpu; only the tests
 import both. PIL is imported only to decode JPEG on the CPU

@@ -206,3 +206,36 @@ def load_pool(path, capacity=None, device="cuda"):
     a = recarray_to_arrays(load_gs(path))
     return pool_from_arrays(a["pws"], a["rots"], a["scales"], a["alphas"], a["shs"],
                             capacity=capacity, device=device)
+
+
+# ---------------------------------------------------------------- transforms
+# Port of the JAX module's transforms (numpy and scipy's Rotation on both
+# sides, so they are bit-equal).
+
+
+def matrix_to_quaternion(R):
+    """Batched rotation matrices [N,3,3] -> wxyz quaternions [N,4]."""
+    from scipy.spatial.transform import Rotation
+
+    q = Rotation.from_matrix(np.asarray(R, np.float64)).as_quat()  # xyzw
+    return np.concatenate([q[:, 3:4], q[:, :3]], axis=1).astype(np.float32)
+
+
+def quaternion_to_matrix(q):
+    """Batched wxyz quaternions [N,4] -> rotation matrices [N,3,3]."""
+    from scipy.spatial.transform import Rotation
+
+    q = np.asarray(q, np.float64)
+    xyzw = np.concatenate([q[:, 1:], q[:, :1]], axis=1)
+    return Rotation.from_quat(xyzw).as_matrix().astype(np.float32)
+
+
+def rotate_gaussians(T, gs):
+    """A copy of the gaussian recarray ``gs`` rigidly rotated by the [3,3]
+    matrix ``T``: positions and orientations."""
+    T = np.asarray(T, np.float64)
+    gs = gs.copy()
+    gs["pw"] = (T @ np.asarray(gs["pw"], np.float64).T).T.astype(np.float32)
+    R = quaternion_to_matrix(gs["rot"]).astype(np.float64)
+    gs["rot"] = matrix_to_quaternion(T[None] @ R)
+    return gs

@@ -469,26 +469,31 @@ def resized_size(width, height, resize_rate):
     return max(1, round(width * resize_rate)), max(1, round(height * resize_rate))
 
 
+def decode_file(path, device="cuda"):
+    """A PNG or JPEG file -> (uint8 tensor [H,W,C] on ``device``, Pillow
+    mode). JPEG by nvJPEG on a CUDA device and by PIL on the CPU; PNG by the
+    port's own decoder on both."""
+    dev = resolve_device(device)
+    data = Path(path).read_bytes()
+    if data.startswith(PNG_SIGNATURE):
+        pixels, mode = decode_png(data)
+        return torch.from_numpy(pixels).to(dev), mode
+    if data[:2] == b"\xff\xd8":
+        jpeg_info(data)
+        if dev.type == "cuda":
+            return decode_jpeg_cuda(data, dev), "RGB"
+        pixels, mode = decode_jpeg_cpu(data)
+        return torch.from_numpy(pixels), mode
+    raise ValueError(f"{path}: not a PNG or JPEG file (the port decodes those two)")
+
+
 def load_rgb8(path, resize_rate=1.0, device="cuda"):
     """A PNG or JPEG photo -> uint8 tensor [H,W,3] on ``device``, resized
     by ``resize_rate`` as the JAX loader resizes it (Image.resize, then
     convert("RGB")). The decoder is chosen by ``device``: JPEG by nvJPEG on
     a CUDA device and by PIL on the CPU; PNG by the port's own decoder on
     both."""
-    dev = resolve_device(device)
-    data = Path(path).read_bytes()
-    if data.startswith(PNG_SIGNATURE):
-        pixels, mode = decode_png(data)
-        img = torch.from_numpy(pixels).to(dev)
-    elif data[:2] == b"\xff\xd8":
-        jpeg_info(data)
-        if dev.type == "cuda":
-            img, mode = decode_jpeg_cuda(data, dev), "RGB"
-        else:
-            pixels, mode = decode_jpeg_cpu(data)
-            img = torch.from_numpy(pixels)
-    else:
-        raise ValueError(f"{path}: not a PNG or JPEG file (the port decodes those two)")
+    img, mode = decode_file(path, device)
     if resize_rate != 1:
         img = pillow_resize(img, mode, resized_size(img.shape[1], img.shape[0], resize_rate))
     return to_rgb(img, mode)

@@ -19,7 +19,9 @@ end, then ``final.npy`` and ``final.ply``, into ``--out``.
 ``--preview`` adds a PNG of camera 0 at each save, ``--profile DIR`` writes a
 ``torch.profiler`` trace of the first epoch (CUDA activity on the card) to
 ``DIR/trace.json``, and ``--debug-nans`` stops at the first step whose loss
-or gradient holds a non-finite value, naming it.
+or gradient holds a non-finite value, naming it. ``--monitor-port PORT``
+serves the live training monitor (viewer/monitor.py: camera 0 rendered
+after every epoch, and the loss and PSNR history) while it trains.
 """
 
 import argparse
@@ -38,6 +40,7 @@ from easygaussiansplatting_tpu_torch.train.config import TrainConfig
 from easygaussiansplatting_tpu_torch.train.loop import render_pool_image, train
 from easygaussiansplatting_tpu_torch.utils.device import resolve_device
 from easygaussiansplatting_tpu_torch.utils.image import save_png, to_uint8
+from easygaussiansplatting_tpu_torch.viewer.monitor import TrainingMonitor
 
 
 def main(argv=None):
@@ -69,6 +72,9 @@ def main(argv=None):
                     help="write a torch.profiler trace of the first epoch to DIR/trace.json")
     ap.add_argument("--debug-nans", action="store_true",
                     help="check every step's loss and gradients, raise on a non-finite value")
+    ap.add_argument("--monitor-port", type=int, default=0,
+                    help="serve a live training monitor (latest render + loss/PSNR history) "
+                         "on this port during training")
     args = ap.parse_args(argv)
     if args.synthetic:
         if args.gs:
@@ -136,7 +142,14 @@ def main(argv=None):
             prof.export_chrome_trace(str(trace))
             log_fn(f"wrote profiler trace to {trace}")
 
-    def save_cb(epoch, pool, adam_state, stats, generator):
+    monitor = None
+    if args.monitor_port:
+        # live in-browser preview: the latest render of camera 0 and the history
+        monitor = TrainingMonitor(cameras[0], config, port=args.monitor_port, log_fn=log_fn)
+
+    def save_cb(epoch, pool, adam_state, stats, generator, history=None):
+        if monitor is not None:
+            monitor.epoch_cb(epoch, pool, history=history)
         stop_profiler()  # after the first epoch this run trains
         if epoch % config.save_every_epochs == 0 or epoch == config.epochs:
             save_pool(out / f"epoch{epoch:04d}.npy", pool)
@@ -146,9 +159,13 @@ def main(argv=None):
                 img, _ = render_pool_image(pool, cameras[0], config, need_grads=False)
                 save_png(out / f"preview{epoch:04d}.png", to_uint8(img.cpu().numpy()))
 
-    pool, history = train(pool, cameras, images, config, scene_size, seed=args.seed,
-                          log_fn=log_fn, eval_every=args.eval_every, epoch_cb=save_cb,
-                          debug_nans=args.debug_nans, **resume)
+    try:
+        pool, history = train(pool, cameras, images, config, scene_size, seed=args.seed,
+                              log_fn=log_fn, eval_every=args.eval_every, epoch_cb=save_cb,
+                              debug_nans=args.debug_nans, **resume)
+    finally:
+        if monitor is not None:
+            monitor.close()
     stop_profiler()  # no epoch ran
     save_pool(out / "final.npy", pool)
     save_pool(out / "final.ply", pool)  # official-3DGS layout for external viewers

@@ -917,3 +917,81 @@ def test_all_culled_scene_through_the_kernels(cuda):
     img.sum().backward()
     assert float(img.detach().abs().max()) == 0.0
     assert float(pws.grad.abs().max()) == 0.0 and bool(torch.isfinite(pws.grad).all())
+
+
+# ---------------------------------------------------------------- the viewer and bench_scene
+
+def _viewer_fixture(device, backend):
+    from easygaussiansplatting_tpu_torch.data import example_gaussians
+    from easygaussiansplatting_tpu_torch.data.synthetic import look_at_camera
+    from easygaussiansplatting_tpu_torch.viewer.server import SceneRenderer
+
+    g = example_gaussians()
+    gs = {k: g[k] for k in KEYS}
+    cams = [look_at_camera(p, np.zeros(3), 64, 48, 60.0, cam_id=i)
+            for i, p in enumerate(np.array([[0.8, 0.2, 0.3], [0.2, 0.8, 0.3]]))]
+    cloud = {"pws": gs["pws"], "rots": gs["rots"],
+             "scales": np.full_like(np.asarray(gs["scales"], np.float32), 0.01),
+             "alphas": np.full(len(gs["pws"]), 0.9, np.float32),
+             "shs": np.asarray(gs["shs"], np.float32)[:, :3]}
+    return SceneRenderer(gs, dataset_cameras=cams, cloud=cloud, marker_skip=1, backend=backend,
+                         max_patches=2**12, device=device)
+
+
+@pytest.mark.parametrize("kw", [dict(mode="normal"), dict(mode="ball", markers=True),
+                                dict(mode="inverse", cloud=True, cloud_mode="rainbow"),
+                                dict(axes=True, grid=True), dict(lores=True)])
+def test_viewer_frame_kernels_match_plain(cuda, kw):
+    """A SceneRenderer frame on the card's kernels against the all-plain
+    path on the card: within 1 level, at most 0.1% of the pixels a level
+    off; K1 once, K3's 3 calls and K4 once a frame."""
+    kern, plain = _viewer_fixture(cuda, "cuda"), _viewer_fixture(cuda, "tiled")
+    view = dict(azimuth=0.7, elevation=0.3, width=256, height=192)
+    wrappers = (preprocess.preprocess_fwd, scan.multi_cumsum, rasterize.rasterize_fwd)
+    before = [w.launches for w in wrappers]
+    got = kern.render(**view, **kw)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 3, 1]
+    want = plain.render(**view, **kw)
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert got.shape == want.shape and d.max() <= 1 and (d > 0).any(-1).mean() <= 1e-3
+
+
+def test_turntable_on_the_card_matches_the_cpu(cuda):
+    from easygaussiansplatting_tpu_torch.data import example_gaussians
+    from easygaussiansplatting_tpu_torch.viewer.headless import render_turntable
+
+    g = example_gaussians()
+    gs = {k: g[k] for k in KEYS}
+    kw = dict(max_patches=2**10, n_frames=3, width=32, height=32)
+    got = render_turntable(gs, device=cuda, **kw)
+    want = render_turntable(gs, device="cpu", **kw)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+
+
+def test_sh_demo_on_the_card_matches_the_cpu(cuda):
+    from easygaussiansplatting_tpu_torch import sh_demo
+
+    img = sh_demo.procedural_texture(32, 64)
+    (got, _), (want, _) = sh_demo.fit_sh(img, 5, cuda), sh_demo.fit_sh(img, 5, "cpu")
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    a = sh_demo.make_sphere_renderer(img, want, res=48, device=cuda)(1.0).cpu().numpy()
+    b = sh_demo.make_sphere_renderer(img, want, res=48, device="cpu")(1.0).numpy()
+    np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+def test_bench_scene_smoke_launches_per_step_and_render(cuda, capsys):
+    """One --smoke epoch on the card: K2, K5, K6 once a step; K1, K4 once a
+    step and once a render (8 ground-truth views, 4 eval views, the
+    training loop's eval at its last epoch); K3 three times each of those."""
+    from easygaussiansplatting_tpu_torch import bench_scene
+
+    wrappers = (preprocess.preprocess_fwd, preprocess.preprocess_bwd, scan.multi_cumsum,
+                rasterize.rasterize_fwd, rasterize.rasterize_bwd, scan.segmented_cumsum)
+    before = [w.launches for w in wrappers]
+    lines, state = bench_scene.main(["--smoke", "--epochs", "1"])
+    steps, renders = 8, 8 + 4 + 1
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [
+        steps + renders, steps, 3 * (steps + renders), steps + renders, steps, steps]
+    assert "backend=cuda" in capsys.readouterr().out
+    assert lines[1]["metric"] == "time_to_psnr25" and state["history"]["overflow_steps"] == [0]
