@@ -80,7 +80,18 @@ gaussians, SH degree 3, 979x546, max_patches 557,056, max_rows 229,376):
   launching K1 once, K3's 3 calls and K4 once; the HTTP server on an
   ephemeral port (PNG bodies decoded bit-equal to render()'s frames, 400,
   404); viewer_fps; a 4-frame GIF turntable read back with struct; and the
-  training monitor over 2 epochs of train.
+  training monitor over 2 epochs of train;
+* the multi-device path (parallel/) at bench.py's width: world size 1
+  under NCCL in this process (the batched step at batch 1 bit-equal to
+  make_train_step, at batch 4 against the mean of 4 single-camera steps,
+  the replicated render against render, train_sharded for 2 epochs at
+  batch 2, one rank's step times); two ranks on the one card joined by
+  gloo (``chip_smoke.py --md-rank``, child processes under a time limit,
+  started beside it): the banded step and render over 2 bands and the
+  batched step on (2, 1) and (1, 2), each against the world-size-1 result
+  with 0 drops; then the train CLI with --batch 2 --mesh-data 1, entry(),
+  dryrun_multichip(1) and bench_scaling at world size 1. K1-K6's launches,
+  in this process and in each rank, are held to the steps and renders.
 
 Each path's (or route's, or probe's) kernel launch counts are set to 0 just
 before it runs and read just after. The render's, the step's and the
@@ -118,8 +129,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from easygaussiansplatting_tpu_torch import bench_scene, viewer_fps
+from easygaussiansplatting_tpu_torch import bench_scene, graft_entry, viewer_fps
 from easygaussiansplatting_tpu_torch.data import colmap, image_io, native_loader
 from easygaussiansplatting_tpu_torch.data.dataset import (
     load_colmap_dataset,
@@ -136,8 +148,9 @@ from easygaussiansplatting_tpu_torch.data.make_io_fixtures import (
 )
 from easygaussiansplatting_tpu_torch.data.synthetic import make_synthetic_scene
 from easygaussiansplatting_tpu_torch.eval import evaluate_views
+from easygaussiansplatting_tpu_torch.models.camera import Camera
 from easygaussiansplatting_tpu_torch.models.convert import gaussians_from_numpy
-from easygaussiansplatting_tpu_torch.models.gaussians import pool_from_arrays
+from easygaussiansplatting_tpu_torch.models.gaussians import GROUPS, GaussianPool, pool_from_arrays
 from easygaussiansplatting_tpu_torch.ops import stages
 from easygaussiansplatting_tpu_torch.ops.binning import TILE, bin_gaussians, num_tiles
 from easygaussiansplatting_tpu_torch.ops.blend import ALPHA_CLAMP, ALPHA_SKIP, chunk_alpha
@@ -151,6 +164,23 @@ from easygaussiansplatting_tpu_torch.ops.kernels import (
 )
 from easygaussiansplatting_tpu_torch.ops.rasterize import render
 from easygaussiansplatting_tpu_torch.ops.rasterize_tiled import K_CHUNK
+from easygaussiansplatting_tpu_torch.parallel.distributed import (
+    fetch_to_host,
+    free_port,
+    init_distributed,
+    launch_ranks,
+)
+from easygaussiansplatting_tpu_torch.parallel.loop import train_sharded
+from easygaussiansplatting_tpu_torch.parallel.mesh import make_mesh
+from easygaussiansplatting_tpu_torch.parallel.train import (
+    banded_loss_and_grads,
+    make_sharded_render,
+    make_sharded_train_step,
+    shard_batch,
+    shard_pool,
+    sharded_loss_and_grads,
+    stack_cameras,
+)
 from easygaussiansplatting_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from easygaussiansplatting_tpu_torch.train.config import TrainConfig
 from easygaussiansplatting_tpu_torch.train.density import density_stats_init
@@ -158,6 +188,7 @@ from easygaussiansplatting_tpu_torch.train.loop import (
     PatchBudget,
     loss_and_grads,
     make_train_step,
+    render_pool_image,
     train,
 )
 from easygaussiansplatting_tpu_torch.probes import ab, exp_dma_stream, micro_bench
@@ -2070,8 +2101,15 @@ def bench_launches_expected(state, n_cams):
     truth, the eval views after each epoch, the training loop's own eval at
     its last epoch); K3 three times each of those."""
     hist = state["history"]
-    steps = len(hist["loss"]) * n_cams
-    renders = n_cams + 4 * len(state["curve"]) + len(hist["psnr"])
+    return path_launches(len(hist["loss"]) * n_cams,
+                         n_cams + 4 * len(state["curve"]) + len(hist["psnr"]))
+
+
+def path_launches(steps, renders):
+    """K1-K6's launches on a path of ``steps`` cameras trained and
+    ``renders`` forward renders (a banded step counts as a step, a band of
+    a render as a render): K2, K5 and K6 once a trained camera; K1 and K4
+    once each; K3 three times each."""
     one = steps + renders
     return {"K1 preprocess_fwd": one, "K2 preprocess_bwd": steps, "K3 multi_cumsum": 3 * one,
             "K4 rasterize_fwd": one, "K5 rasterize_bwd": steps, "K6 segmented_cumsum": steps}
@@ -2370,6 +2408,334 @@ def phase_viewer(device, smi):
     return lines
 
 
+# The multi-device phase (parallel/) at bench.py's width: (a) world size 1
+# under NCCL in this process; (b) MD_RANKS ranks on the one card, child
+# processes joined by gloo (NCCL takes one rank a card), each under
+# MD_RANK_TIMEOUT seconds; (c) the entry points.
+MD_DIR = ROOT / "build" / "smoke_md"
+MD_RANKS = 2
+MD_BATCH = 2
+MD_RANK_TIMEOUT = 300
+MD_TIMED = 20
+
+
+def launches_now():
+    return {k: w.launches for k, w in WRAPPERS.items()}
+
+
+def check_launches(label, launches, steps, renders):
+    """``launches`` against what ``steps`` trained cameras and ``renders``
+    renders need; no other kernel may have run."""
+    want = path_launches(steps, renders)
+    got = {k: launches[k] for k in want}
+    require(got == want, f"{label}: launches {got}, its steps and renders need {want}")
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    require(not others, f"{label}: a kernel off the default path ran: {others}")
+    return f"{label}: launches {got}, as many as its steps and renders need"
+
+
+def counted(fn):
+    """(fn(), the launches it made, counted from 0, after a synchronise)."""
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launches_now()
+
+
+def render_check(label, img, want, dropped):
+    """A multi-device render against the single-device one: the render
+    gate (at most SLICE_MAX_BAD_SHARE of the pixels over SLICE_TOL), 0
+    drops."""
+    bad = int(((img - want).abs() > SLICE_TOL).any(dim=0).sum())
+    n_pix = want.shape[1] * want.shape[2]
+    line = (f"{label}: max_abs_err {float((img - want).abs().max()):.3e}, bit-equal "
+            f"{torch.equal(img, want)}, pixels over {SLICE_TOL}: {bad} of {n_pix}, dropped "
+            f"{int(dropped)}")
+    require(img.shape == want.shape and bad <= SLICE_MAX_BAD_SHARE * n_pix and int(dropped) == 0,
+            line)
+    return line
+
+
+def step_check(label, loss, grads, dropped, want_loss, want_grads):
+    """A multi-device step's loss and gradients against the single-device
+    ones, within phase_step_compare's limits; 0 drops."""
+    rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    same = float(loss) == float(want_loss) and all(torch.equal(grads[k], want_grads[k])
+                                                    for k in want_grads)
+    lines = [f"{label}: loss {float(loss):.7f} vs {float(want_loss):.7f} (rel {rel:.2e}), "
+             f"bit-equal {same}, dropped {int(dropped)}"]
+    require(rel <= STEP_LOSS_RTOL and int(dropped) == 0, lines[0])
+    lines += group_check(f"  {label} gradients", list(want_grads),
+                         [grads[k] for k in want_grads], [want_grads[k] for k in want_grads],
+                         STEP_REL)[1]
+    return lines
+
+
+def md_world_one(device, pool, cams, gts, scene_size, cfg):
+    """(a): world size 1 under NCCL in this process. Returns (lines, the
+    single-device references of (b))."""
+    lines = []
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        lines.append(f"world size 1 under {dist.get_backend()}: mesh {mesh.shape}")
+        states = []
+        for _ in range(2):
+            p = copy.deepcopy(pool)
+            states.append([p, adam_init(p.params()), density_stats_init(p.capacity, device)])
+        (p1, a1, s1), (p2, a2, s2) = states
+        single = make_train_step(cfg, scene_size, 10, device=device)
+        loss1, b1 = single(p1, a1, s1, cams[0], gts[0])
+        p2, a2, s2 = shard_pool(mesh, p2, a2, s2)
+        step = make_sharded_train_step(mesh, cfg, scene_size, 10)
+        (loss2, b2), launches = counted(lambda: step(p2, a2, s2, stack_cameras(cams[:1]),
+                                                     gts[:1]))
+        lines.append(check_launches("  sharded step at batch 1", launches, 1, 0))
+        same = (torch.equal(loss1, loss2)
+                and all(torch.equal(v, getattr(p2, k)) for k, v in p1.params().items())
+                and all(torch.equal(a1.mu[k], a2.mu[k]) and torch.equal(a1.nu[k], a2.nu[k])
+                        for k in GROUPS)
+                and torch.equal(s1.grad_accum, s2.grad_accum) and torch.equal(s1.cunt, s2.cunt))
+        lines.append(f"  sharded step at batch 1 vs make_train_step on view 0: loss "
+                     f"{float(loss2):.7f} vs {float(loss1):.7f}; parameters, Adam moments and "
+                     f"density stats bit-equal: {same}; dropped {int(b2['dropped'])}")
+        require(same and int(b2["dropped"]) == 0 == int(b1["dropped"]),
+                "the sharded step at batch 1 differs from make_train_step")
+        # what one rank costs: the steps above, on, from the state they left
+        ms_single = render_wall(lambda: single(p1, a1, s1, cams[0], gts[0]), MD_TIMED)[0]
+        ms_one = render_wall(lambda: step(p2, a2, s2, stack_cameras(cams[:1]), gts[:1]),
+                             MD_TIMED)[0]
+        ms_all = render_wall(lambda: step(p2, a2, s2, stack_cameras(cams), gts), MD_TIMED)[0]
+        lines.append(f"  one rank's cost, median of {MD_TIMED} steps after 2 warm (host clock "
+                     f"to a synchronise): make_train_step {ms_single:.3f} ms; the sharded step "
+                     f"(NCCL, world size 1) at batch 1 {ms_one:.3f} ms, at batch {N_VIEWS} "
+                     f"{ms_all:.3f} ms ({ms_all / N_VIEWS:.3f} ms a camera)")
+        del states, p1, a1, s1, p2, a2, s2
+
+        out, launches = counted(lambda: sharded_loss_and_grads(
+            mesh, pool, stack_cameras(cams), gts, cfg))
+        loss4, g4, vis4, drop4 = out
+        lines.append(check_launches(f"  sharded loss and gradients at batch {N_VIEWS}",
+                                    launches, N_VIEWS, 0))
+        singles = [loss_and_grads(pool, cam, gt, cfg) for cam, gt in zip(cams, gts)]
+        want_loss = torch.stack([s[0] for s in singles]).mean()
+        want = {k: sum(s[1][k] for s in singles) / N_VIEWS for k in g4}
+        vis_want = functools.reduce(torch.logical_or,
+                                    [s[2]["depths"] >= stages.MIN_DEPTH for s in singles])
+        rel = abs(float(loss4) - float(want_loss)) / float(want_loss)
+        lines.append(f"  batch {N_VIEWS} vs the mean of {N_VIEWS} single-camera steps: loss "
+                     f"{float(loss4):.7f} vs {float(want_loss):.7f} (rel {rel:.2e}), "
+                     f"visibility equal {torch.equal(vis4, vis_want)}, dropped {int(drop4)}")
+        require(rel <= STEP_LOSS_RTOL and torch.equal(vis4, vis_want) and int(drop4) == 0,
+                "the batched loss or visibility differs from the single-camera steps'")
+        lines += group_check(f"  batch {N_VIEWS} gradients", list(want), [g4[k] for k in want],
+                             [want[k] for k in want], KERNEL_REL)[1]
+        del singles, g4, want
+
+        (img, aux), launches = counted(lambda: make_sharded_render(mesh, cfg, with_aux=True)(
+            pool, cams[0]))
+        lines.append(check_launches("  replicated render", launches, 0, 1))
+        want_img, _ = render_pool_image(pool, cams[0], cfg, need_grads=False)
+        lines.append(render_check("  replicated render vs render", img, want_img,
+                                  aux["n_dropped"]))
+
+        logs = []
+        t0 = time.perf_counter()
+        (p3, hist), launches = counted(lambda: train_sharded(
+            copy.deepcopy(pool), cams, gts, dataclasses.replace(cfg, epochs=2), scene_size,
+            mesh, batch=MD_BATCH, log_fn=logs.append))
+        seconds = time.perf_counter() - t0
+        lines.append(check_launches(f"  train_sharded, 2 epochs of {N_VIEWS} views at batch "
+                                    f"{MD_BATCH}", launches, 2 * N_VIEWS, len(hist["psnr"])))
+        lines.append(f"  train_sharded ({seconds:.1f} s): losses {hist['loss']}, psnr "
+                     f"{hist['psnr']}, alive {hist['n_alive']}, overflow steps "
+                     f"{hist['overflow_steps']}; " + " | ".join(logs))
+        require(np.isfinite(hist["loss"]).all() and hist["overflow_steps"] == [0, 0]
+                and int(p3.n_alive()) == int(pool.n_alive()), "train_sharded went wrong")
+        refs = {"banded": loss_and_grads(pool, cams[0], gts[0], cfg)[:2],
+                "batched": sharded_loss_and_grads(mesh, pool, stack_cameras(cams[:MD_BATCH]),
+                                                  gts[:MD_BATCH], cfg)[:2],
+                "render": want_img}
+    finally:
+        dist.destroy_process_group()
+    return lines, refs
+
+
+def md_rank(rank, port, inp, out):
+    """One rank of (b): ``MD_RANKS`` ranks on cuda:0 joined by gloo, each
+    computing the banded step and render over its band and the batched
+    step on (data 2, gs 1) and (data 1, gs 2) from the state the parent
+    wrote; rank 0 writes the results, every rank prints its launches."""
+    require(not _build.needs_build(), "a rank would build the kernels the parent built")
+    dev = init_distributed(f"localhost:{port}", MD_RANKS, rank, device="cuda:0",
+                           backend="gloo", timeout_s=MD_RANK_TIMEOUT)
+    state = torch.load(inp)
+    pool = GaussianPool(*(state[k].to(dev) for k in GROUPS), alive=state["alive"].to(dev))
+    gts = [g.to(dev) for g in state["gts"]]
+    cams = make_synthetic_scene(seed=SEED, n_gaussians=N_GAUSSIANS, n_cams=N_VIEWS, width=WIDTH,
+                                height=HEIGHT, log_scale_mean=-3.6)["cameras"]
+    cfg = TrainConfig(max_patches=MAX_PATCHES, max_rows=MAX_ROWS, sh_degree=3)
+    res, launches = {}, {}
+    mesh = make_mesh(MD_RANKS)  # (1, MD_RANKS): MD_RANKS bands
+    shard = shard_pool(mesh, pool)
+    out_b, launches["banded step"] = counted(lambda: banded_loss_and_grads(
+        mesh, shard, cams[0], gts[0], cfg))
+    res["banded"] = (out_b[0], fetch_to_host(mesh, out_b[1]), out_b[3])
+    (img, aux), launches["banded render"] = counted(lambda: make_sharded_render(
+        mesh, cfg, with_aux=True)(shard, cams[0]))
+    res["render"] = (img, aux["n_dropped"])
+    for data in (MD_RANKS, 1):
+        mesh = make_mesh(MD_RANKS, data=data)
+        shard = shard_pool(mesh, pool)
+        label = f"batched {tuple(mesh.shape.values())}"
+        out_s, launches[label] = counted(lambda: sharded_loss_and_grads(
+            mesh, shard, shard_batch(mesh, stack_cameras(cams[:MD_BATCH])),
+            shard_batch(mesh, gts[:MD_BATCH]), cfg))
+        res[label] = (out_s[0], fetch_to_host(mesh, out_s[1]), out_s[3])
+    if rank == 0:
+        torch.save({k: tuple(v.cpu() if torch.is_tensor(v) else {g: t.cpu() for g, t in v.items()}
+                             for v in vals) for k, vals in res.items()}, out)
+    dist.destroy_process_group()
+    print(json.dumps({"rank": rank, "launches": launches}), flush=True)
+
+
+def md_entry_points(device):
+    """(c): dryrun_multichip(1) and bench_scaling at world size 1 (each
+    starts its rank as a child process) beside the train CLI with --batch
+    2 --mesh-data 1 and entry() in this process."""
+    lines, results = [], {}
+
+    def dryrun():
+        t0 = time.perf_counter()
+        results["dryrun"] = (graft_entry.dryrun_multichip(1), time.perf_counter() - t0)
+
+    thread = threading.Thread(target=lambda: _guarded(results, "dryrun", dryrun))
+    bench = subprocess.Popen([sys.executable, "-m", "easygaussiansplatting_tpu_torch.bench_scaling",
+                              "--trials", "3"], cwd=ROOT, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    t_bench = time.perf_counter()
+    thread.start()
+    try:
+        out = MD_DIR / "cli"
+        if (out / "final.npy").exists():
+            (out / "final.npy").unlink()
+        t0 = time.perf_counter()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            hist, launches = counted(lambda: train_main([
+                "--synthetic", "--epochs", "2", "--batch", "2", "--mesh-data", "1",
+                "--out", str(out)]))
+        printed = log.getvalue().strip().splitlines()
+        lines.append(f"train CLI --synthetic --batch 2 --mesh-data 1 ({time.perf_counter() - t0:.1f}"
+                     f" s): " + " | ".join(printed[-3:]))
+        lines.append(check_launches("  train CLI", launches, 2 * 8, 8 + len(hist["psnr"])))
+        require((out / "final.npy").exists() and any("mesh {'data': 1, 'gs': 1}; batch=2" in ln
+                                                      for ln in printed)
+                and hist["overflow_steps"] == [0, 0], "the train CLI's sharded run went wrong")
+
+        fn, args = graft_entry.entry()
+        img, launches = counted(lambda: fn(*args))
+        lines.append(check_launches("  entry()", launches, 0, 1))
+        want, _ = render(*args[:5], Camera.from_dict({
+            "Rcw": args[5].cpu(), "tcw": args[6].cpu(), "fx": args[7].cpu(), "fy": args[8].cpu(),
+            "cx": args[9].cpu(), "cy": args[10].cpu(), "width": 256, "height": 192}),
+            backend="tiled", max_patches=2**16, need_grads=False, device=device)
+        lines.append(render_check("entry() [3, 192, 256] vs the all-plain path", img.detach(),
+                                  want, 0))
+    finally:
+        thread.join()
+        try:
+            stdout, stderr = bench.communicate(timeout=MD_RANK_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            bench.kill()
+            stdout, stderr = bench.communicate()
+    if isinstance(results.get("dryrun"), BaseException):
+        raise results["dryrun"]
+    reports, seconds = results["dryrun"]
+    lines.append(f"dryrun_multichip(1) ({seconds:.1f} s): {json.dumps(reports)}")
+    require(len(reports) == 1 and reports[0]["mesh"] == [1, 1], "dryrun_multichip(1) went wrong")
+    require(bench.returncode == 0, f"bench_scaling failed:\n{stdout}\n{stderr}")
+    printed = stdout.strip().splitlines()
+    rec = json.loads(printed[-1])
+    lines += [f"bench_scaling ({time.perf_counter() - t_bench:.1f} s): {ln}" for ln in printed]
+    require(rec["metric"] == "scaling_efficiency" and rec["value"] is None
+            and "no scaling" in rec["note"], f"bench_scaling's line: {rec}")
+    return lines
+
+
+def _guarded(results, name, fn):
+    try:
+        fn()
+    except BaseException as e:  # raised again in the phase's thread
+        results[name] = e
+
+
+def phase_multidevice(device, smi):
+    """The multi-device phase: (a), (b) and (c) above, with the seconds of
+    each. (b)'s ranks start first and load while (a) runs."""
+    t_phase = time.perf_counter()
+    lines = [f"multi-device phase on {smi}"]
+    pool, cams, gts, scene_size, cfg = train_setup(device)
+    MD_DIR.mkdir(parents=True, exist_ok=True)
+    inp, out = MD_DIR / "state.pt", MD_DIR / "ranks.pt"
+    if out.exists():
+        out.unlink()
+    torch.save({**{k: getattr(pool, k).detach().cpu() for k in GROUPS},
+                "alive": pool.alive.cpu(), "gts": [g.cpu() for g in gts]}, inp)
+    port, results = free_port(), {}
+
+    def ranks():
+        t0 = time.perf_counter()
+        results["ranks"] = (launch_ranks(
+            lambda r: [sys.executable, str(ROOT / "chip_smoke.py"), "--md-rank", str(r),
+                       str(port), str(inp), str(out)], MD_RANKS, MD_RANK_TIMEOUT, cwd=ROOT),
+            time.perf_counter() - t0)
+
+    thread = threading.Thread(target=lambda: _guarded(results, "ranks", ranks))
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        a_lines, refs = md_world_one(device, pool, cams, gts, scene_size, cfg)
+        lines += a_lines
+        lines.append(f"(a) world size 1: {time.perf_counter() - t0:.1f} s")
+    finally:
+        thread.join()
+    if isinstance(results.get("ranks"), BaseException):
+        raise results["ranks"]
+    outs, seconds = results["ranks"]
+    lines.append(f"(b) {MD_RANKS} ranks on cuda:0 joined by gloo: {seconds:.1f} s (with their "
+                 f"start-up, beside (a))")
+    res = torch.load(out)
+    for text in outs:
+        rep = json.loads(text.strip().splitlines()[-1])
+        per = {"banded step": (1, 0), "banded render": (0, 1),
+               f"batched ({MD_RANKS}, 1)": (MD_BATCH // MD_RANKS, 0),
+               f"batched (1, {MD_RANKS})": (MD_BATCH, 0)}
+        for label, (steps, renders) in per.items():
+            lines.append(check_launches(f"  rank {rep['rank']} {label}", rep["launches"][label],
+                                        steps, renders))
+    loss, grads, dropped = res["banded"]
+    want_loss, want_grads = refs["banded"]
+    lines += step_check(f"  banded step over {MD_RANKS} bands vs make_train_step's",
+                        loss, {k: v.to(device) for k, v in grads.items()}, dropped, want_loss,
+                        want_grads)
+    img, dropped = res["render"]
+    lines.append(render_check(f"  banded render over {MD_RANKS} bands vs render", img.to(device),
+                              refs["render"], dropped))
+    want_loss, want_grads = refs["batched"]
+    for shape in ((MD_RANKS, 1), (1, MD_RANKS)):
+        loss, grads, dropped = res[f"batched {shape}"]
+        lines += step_check(f"  batched step on {shape} at batch {MD_BATCH} vs world size 1",
+                            loss, {k: v.to(device) for k, v in grads.items()}, dropped,
+                            want_loss, want_grads)
+    t0 = time.perf_counter()
+    lines += md_entry_points(device)
+    lines.append(f"(c) entry points: {time.perf_counter() - t0:.1f} s")
+    lines.append(f"multi-device phase: {time.perf_counter() - t_phase:.1f} s")
+    return lines
+
+
 def print_timing(entry):
     lib = "none" if entry["library_ms"] is None else f"{entry['library_ms']:.4f} ms"
     print(f"{entry['name']}: {entry['ms']:.4f} ms by CUDA events ({entry['call_ms']:.4f} ms "
@@ -2378,6 +2744,8 @@ def print_timing(entry):
 
 
 def main():
+    if sys.argv[1:2] == ["--md-rank"]:  # a rank of the multi-device phase
+        return md_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA device",
               file=sys.stderr)
@@ -2468,6 +2836,8 @@ def main():
     for line in phase_bench_scene(smi):
         print(line, flush=True)
     for line in phase_viewer(device, smi):
+        print(line, flush=True)
+    for line in phase_multidevice(device, smi):
         print(line, flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)
 

@@ -9,9 +9,10 @@ first use and bound through ``ctypes`` (``ops/kernels/_build.py``). Each
 kernel keeps a plain PyTorch version beside it: a wrapper takes the plain
 version for CPU tensors and launches the kernel for CUDA tensors.
 
-Ported so far (the forward render, the training step, the epoch driver,
-the gradient gate, eval, COLMAP scenes from photos on disk, the
-time-to-PSNR benchmark, the viewer, and every Pallas kernel of the
+Ported (the forward render, the training step, the epoch loop, the
+gradient gate, eval, COLMAP scenes from photos on disk, the time-to-PSNR
+benchmark, the viewer, multi-device training on torch.distributed, the
+entry points of __graft_entry__.py, and every Pallas kernel of the
 repository):
   utils/{sh,activations,quaternion,schedule,image,envflag,device,gif}.py,
   models/{camera,gaussians,convert}.py, data/{fixtures,synthetic,gau_io}.py,
@@ -21,9 +22,11 @@ repository):
   ops/kernels/{preprocess,scan,rasterize,sort,radix}.py (K1-K8),
   train/{config,optimizer,density,loop,checkpoint}.py, golden/ (a copy of
   the float64 oracle), probes/{micro_bench,exp_dma_stream}.py (K9, K10),
-  viewer/{headless,server,monitor}.py with viewer/index.html, and the CLIs
-  render.py, train/__main__.py, bench.py, eval.py, verify_gradients.py,
-  bench_scene.py, gaussian_viewer.py, sh_demo.py and viewer_fps.py.
+  viewer/{headless,server,monitor}.py with viewer/index.html,
+  parallel/{mesh,collectives,distributed,train,loop}.py, graft_entry.py,
+  and the CLIs render.py, train/__main__.py, bench.py, eval.py,
+  verify_gradients.py, bench_scene.py, gaussian_viewer.py, sh_demo.py,
+  viewer_fps.py and bench_scaling.py.
 
 This package never imports jax nor easygaussiansplatting_tpu; only the tests
 import both. PIL is imported only to decode JPEG on the CPU

@@ -106,11 +106,17 @@ def _stale(lib):
     return any(p.stat().st_mtime > built for p in CSRC.iterdir())
 
 
+def needs_build():
+    """True when the library is missing or older than a source: a process
+    that must only load what another one built checks this first."""
+    return _stale(BUILD_DIR / LIB_NAME)
+
+
 def build(force=False):
     """Compile csrc/*.cu into BUILD_DIR/LIB_NAME when stale. Returns
     (library path, seconds spent building, compiler log text)."""
     lib = BUILD_DIR / LIB_NAME
-    if not force and not _stale(lib):
+    if not force and not needs_build():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()

@@ -57,6 +57,7 @@ pytestmark = pytest.mark.cuda
 
 KEYS = ("pws", "shs", "alphas", "scales", "rots")
 CAM = Camera.from_dict(example_camera())
+PROFILE_TRIES = 3
 
 
 @pytest.fixture()
@@ -376,10 +377,17 @@ def test_segmented_scan_plan(cuda, m, rows):
     flags = torch.zeros(m, dtype=torch.int32, device=cuda)
     scan.segmented_cumsum(vals, flags)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        scan.segmented_cumsum(vals, flags)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a profile window can record no device event at all (the profiler's
+    # lost records); such a window is taken again, up to PROFILE_TRIES, as
+    # chip_smoke.py's require_kernel_count does. A window that recorded
+    # events must hold the plan's kernels.
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            scan.segmented_cumsum(vals, flags)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
     assert sum("seg_scan_kernel" in n for n in names) == groups, names
     out = torch.empty_like(vals)
     lib = scan._build.library()
@@ -995,3 +1003,140 @@ def test_bench_scene_smoke_launches_per_step_and_render(cuda, capsys):
         steps + renders, steps, 3 * (steps + renders), steps + renders, steps, steps]
     assert "backend=cuda" in capsys.readouterr().out
     assert lines[1]["metric"] == "time_to_psnr25" and state["history"]["overflow_steps"] == [0]
+
+
+# ---- the multi-device layer (parallel/) on the card
+
+def _md_scene(device):
+    """A small scene, a pool with perturbed opacities and colours and the
+    ground truth of its 2 views, for the multi-device cases."""
+    s = make_synthetic_scene(seed=4, n_gaussians=600, n_cams=2, width=96, height=80,
+                             log_scale_mean=-2.6)
+    pool = pool_from_arrays(s["pws"], s["rots"], s["scales"], s["alphas"] * 0.8,
+                            s["shs"] * 0.5, capacity=640, device=device)
+    args = [s[k] for k in ("pws", "shs", "alphas", "scales", "rots")]
+    gts = [render(*args, cam, sh_degree=0, max_patches=2**14, need_grads=False,
+                  device=device)[0] for cam in s["cameras"]]
+    return s, pool, gts, TrainConfig(max_patches=2**14)
+
+
+def test_sharded_step_at_world_size_one_under_nccl(cuda):
+    """World size 1 under NCCL in this process: the batched step at batch 1
+    is bit-equal to make_train_step (the gather of one shard and the reduce
+    over one rank are identities)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from easygaussiansplatting_tpu_torch.parallel.distributed import free_port
+    from easygaussiansplatting_tpu_torch.parallel.mesh import make_mesh
+    from easygaussiansplatting_tpu_torch.parallel.train import (
+        make_sharded_train_step,
+        shard_pool,
+    )
+    from easygaussiansplatting_tpu_torch.train.density import density_stats_init
+    from easygaussiansplatting_tpu_torch.train.loop import make_train_step
+    from easygaussiansplatting_tpu_torch.train.optimizer import adam_init
+
+    s, pool, gts, cfg = _md_scene(cuda)
+    states = []
+    for _ in range(2):
+        p = copy.deepcopy(pool)
+        states.append([p, adam_init(p.params()), density_stats_init(p.capacity, cuda)])
+    (p1, a1, s1), (p2, a2, s2) = states
+    loss1, _ = make_train_step(cfg, s["scene_size"], 10, device=cuda)(p1, a1, s1,
+                                                                     s["cameras"][0], gts[0])
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh(1)
+        p2, a2, s2 = shard_pool(mesh, p2, a2, s2)
+        loss2, binfo = make_sharded_train_step(mesh, cfg, s["scene_size"], 10)(
+            p2, a2, s2, s["cameras"][:1], gts[:1])
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(loss1, loss2) and int(binfo["dropped"]) == 0
+    for k, v in p1.params().items():
+        assert torch.equal(v, getattr(p2, k)), k
+        assert torch.equal(a1.mu[k], a2.mu[k]) and torch.equal(a1.nu[k], a2.nu[k]), k
+    assert torch.equal(s1.grad_accum, s2.grad_accum) and torch.equal(s1.cunt, s2.cunt)
+
+
+def _gloo_rank(rank, port, out):
+    """One of two ranks on cuda:0 joined by gloo: the banded render over 2
+    bands and the batched step's loss and gradients on (data 1, gs 2)."""
+    from easygaussiansplatting_tpu_torch.parallel.distributed import (
+        fetch_to_host,
+        init_distributed,
+    )
+    from easygaussiansplatting_tpu_torch.parallel.mesh import make_mesh
+    from easygaussiansplatting_tpu_torch.parallel.train import (
+        make_sharded_render,
+        shard_pool,
+        sharded_loss_and_grads,
+    )
+
+    dev = init_distributed(f"localhost:{port}", 2, rank, device="cuda:0", backend="gloo",
+                           timeout_s=120)
+    s, pool, gts, cfg = _md_scene(dev)
+    mesh = make_mesh(2)
+    assert mesh.shape == {"data": 1, "gs": 2}
+    shard = shard_pool(mesh, pool)
+    img, aux = make_sharded_render(mesh, cfg, with_aux=True)(shard, s["cameras"][0])
+    loss, grads, _, dropped = sharded_loss_and_grads(mesh, shard, s["cameras"], gts, cfg)
+    grads = fetch_to_host(mesh, grads, device="cpu")
+    if rank == 0:
+        torch.save({"image": img.cpu(), "n_dropped": int(aux["n_dropped"]),
+                    "loss": float(loss), "grads": grads, "dropped": int(dropped)}, out)
+    torch.distributed.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def two_gloo_ranks(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are compiled with nvcc on the card")
+    import os
+
+    from easygaussiansplatting_tpu_torch.ops.kernels import _build
+    from easygaussiansplatting_tpu_torch.parallel.distributed import free_port, launch_ranks
+
+    _build.library()  # built here, so that the ranks only load it
+    root = Path(__file__).resolve().parents[1]
+    out = tmp_path_factory.mktemp("gloo") / "ranks.pt"
+    port = free_port()
+    launch_ranks(lambda r: [sys.executable, __file__, "--gloo-rank", str(r), str(port), str(out)],
+                 2, 300, env={**os.environ, "PYTHONPATH": str(root)}, cwd=root)
+    return torch.load(out)
+
+
+def test_banded_render_on_two_gloo_ranks_matches_render(cuda, two_gloo_ranks):
+    """2 bands, one a rank, on one card: within the render gate of
+    chip_smoke.py (at most 0.1% of the pixels over 1e-4), 0 drops."""
+    s, pool, _, cfg = _md_scene(cuda)
+    from easygaussiansplatting_tpu_torch.train.loop import render_pool_image
+
+    want, _ = render_pool_image(pool, s["cameras"][0], cfg, need_grads=False)
+    got = two_gloo_ranks["image"].to(cuda)
+    assert got.shape == want.shape and two_gloo_ranks["n_dropped"] == 0
+    assert float(((got - want).abs() > 1e-4).any(dim=0).float().mean()) <= 1e-3
+
+
+def test_batched_step_on_two_gloo_ranks_matches_world_size_one(cuda, two_gloo_ranks):
+    """The batch of 2 views on (data 1, gs 2) against world size 1 (one
+    rank, no process group): the loss within rel 1e-5, each gradient group
+    within 1e-4 of its max|g|, 0 drops."""
+    from easygaussiansplatting_tpu_torch.parallel.mesh import make_mesh
+    from easygaussiansplatting_tpu_torch.parallel.train import sharded_loss_and_grads
+
+    s, pool, gts, cfg = _md_scene(cuda)
+    loss, grads, _, dropped = sharded_loss_and_grads(make_mesh(), pool, s["cameras"], gts, cfg)
+    assert two_gloo_ranks["dropped"] == 0 == int(dropped)
+    np.testing.assert_allclose(two_gloo_ranks["loss"], float(loss), rtol=1e-5)
+    for k, want in grads.items():
+        got = two_gloo_ranks["grads"][k].to(cuda)
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), k
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--gloo-rank"]:
+    _gloo_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

@@ -124,7 +124,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for mod in ("train.__main__", "bench", "train.checkpoint", "ops.kernels.sort",
                 "ops.kernels.radix", "utils.envflag", "probes.micro_bench",
                 "probes.exp_dma_stream", "golden.model", "golden.numdiff", "golden.analytic",
-                "eval", "verify_gradients"):
+                "eval", "verify_gradients", "parallel.mesh", "parallel.collectives",
+                "parallel.distributed", "parallel.train", "parallel.loop", "bench_scaling",
+                "graft_entry"):
         assert f"easygaussiansplatting_tpu_torch.{mod}" in names, mod
 
 
