@@ -78,9 +78,20 @@ gaussians, SH degree 3, 979x546, max_patches 557,056, max_rows 229,376):
   mode, axes and grid and the drag preview, each frame within 1 level of
   the all-plain path's (at most 0.1% of its pixels a level off) and
   launching K1 once, K3's 3 calls and K4 once; the HTTP server on an
-  ephemeral port (PNG bodies decoded bit-equal to render()'s frames, 400,
-  404); viewer_fps; a 4-frame GIF turntable read back with struct; and the
-  training monitor over 2 epochs of train;
+  ephemeral port (JPEG bodies, the default, equal to the plain encode of
+  render()'s frame and launching K11 once and K3 twice more; PNG bodies
+  under fmt=png decoded bit-equal to the frames; a 979x546 request's time
+  with each; 400, 404); viewer_fps; a 4-frame GIF turntable read back with
+  struct; the training monitor over 2 epochs of train (K11 once an epoch,
+  /preview.jpg equal to the plain encode at 88); and the SH demo's /frame;
+* the JPEG encoder K11 (``phase_jpeg``): its bytes and coefficients equal
+  to the plain version's on the viewer's frames (979x546, 640x480, the
+  244x136 drag preview), the SH demo's strip and a noise frame at 90 and
+  88, two planted faults (a quantisation table entry, a coefficient bit)
+  refused, nvJPEG's decode of its bytes and that decode's PSNR, its four
+  kernels without a spill, six device kernels a frame (its plan and K3's
+  two scans), and its time beside the plain version's, nvJPEG's encoder's
+  and its bound at the three viewer sizes;
 * the multi-device path (parallel/) at bench.py's width: world size 1
   under NCCL in this process (the batched step at batch 1 bit-equal to
   make_train_step, at batch 4 against the mean of 4 single-camera steps,
@@ -131,14 +142,18 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from easygaussiansplatting_tpu_torch import bench_scene, graft_entry, viewer_fps
+from easygaussiansplatting_tpu_torch import bench_scene, graft_entry, sh_demo, viewer_fps
 from easygaussiansplatting_tpu_torch.data import colmap, image_io, native_loader
 from easygaussiansplatting_tpu_torch.data.dataset import (
     load_colmap_dataset,
     load_image,
     points_to_gaussians,
 )
-from easygaussiansplatting_tpu_torch.data.fixtures import rotmat2qvec, write_colmap_scene
+from easygaussiansplatting_tpu_torch.data.fixtures import (
+    jpeg_frame,
+    rotmat2qvec,
+    write_colmap_scene,
+)
 from easygaussiansplatting_tpu_torch.data.make_io_fixtures import (
     FIXTURES,
     JPEGS,
@@ -156,6 +171,7 @@ from easygaussiansplatting_tpu_torch.ops.binning import TILE, bin_gaussians, num
 from easygaussiansplatting_tpu_torch.ops.blend import ALPHA_CLAMP, ALPHA_SKIP, chunk_alpha
 from easygaussiansplatting_tpu_torch.ops.kernels import (
     _build,
+    jpeg,
     preprocess,
     radix,
     rasterize,
@@ -194,8 +210,10 @@ from easygaussiansplatting_tpu_torch.train.loop import (
 from easygaussiansplatting_tpu_torch.probes import ab, exp_dma_stream, micro_bench
 from easygaussiansplatting_tpu_torch.train.__main__ import main as train_main
 from easygaussiansplatting_tpu_torch.train.optimizer import adam_init
-from easygaussiansplatting_tpu_torch.utils.image import psnr, to_uint8
+from easygaussiansplatting_tpu_torch.utils.image import frame_u8, psnr, to_uint8
+from easygaussiansplatting_tpu_torch.utils.jpeg import coefficients, encode_jpeg_plain, headers
 from easygaussiansplatting_tpu_torch.viewer.headless import render_turntable, save_gif
+from easygaussiansplatting_tpu_torch.viewer import monitor
 from easygaussiansplatting_tpu_torch.viewer.monitor import TrainingMonitor
 from easygaussiansplatting_tpu_torch.viewer.server import CLOUD_MODES, MODES, SceneRenderer, serve
 
@@ -323,7 +341,8 @@ WRAPPERS = {"K1 preprocess_fwd": preprocess.preprocess_fwd,
             "K9a variant_a": micro_bench.variant_a,
             "K9b variant_b": micro_bench.variant_b,
             "K9v variant_vmem_resident": micro_bench.variant_vmem_resident,
-            "K10 stream_sums": exp_dma_stream.stream_sums}
+            "K10 stream_sums": exp_dma_stream.stream_sums,
+            "K11 encode_jpeg": jpeg.encode_jpeg}
 STEP_KERNELS = tuple(k for k in WRAPPERS if k.split()[0] in ("K1", "K2", "K3", "K4", "K5", "K6"))
 ROUTE_KERNELS = ("K7 sort_pairs", "K8 counting_sort")
 K9_KERNELS = ("K9a variant_a", "K9b variant_b", "K9v variant_vmem_resident")
@@ -1361,12 +1380,16 @@ def require_kernel_count(label, fn, expected):
     (the design's launches). A launch that fails raises in fn(), so a call
     cannot run fewer kernels than it launched without failing; a profile that
     holds fewer has lost an activity record, and is taken again, up to
-    KERNEL_COUNT_TRIES profiles. More kernels than the design's, or fewer in
-    every profile, fail. Returns the text for the phase's line."""
+    KERNEL_COUNT_TRIES profiles (a window with no device record at all too:
+    the profiler has dropped whole windows on this card). More kernels than
+    the design's, or fewer in every profile, fail. Returns the text for the
+    phase's line."""
     short = []
     for _ in range(KERNEL_COUNT_TRIES):
         counted, kernels = device_kernels(fn)
-        require(counted is not None, f"{label}: the profiler recorded no device kernel")
+        if counted is None:
+            short.append("no device record")
+            continue
         require(counted <= expected, f"{label}: {kernels} device kernels in one call, "
                 f"the design launches {expected}")
         if counted == expected:
@@ -2278,9 +2301,14 @@ def viewer_scene(device):
 def phase_viewer(device, smi):
     """The viewer on the card: SceneRenderer frames of every mode and
     toggle against the all-plain path, each launching K1 once, K3's 3 calls
-    and K4 once; the HTTP server (PNG bodies bit-equal to the frames, 400,
-    404); viewer_fps; a GIF turntable read back with struct; and the
-    training monitor over 2 epochs of train."""
+    and K4 once; the HTTP server (JPEG bodies, the default and fmt=jpeg,
+    equal to the plain encode of the frame and launching K11 and K3's two
+    calls more; PNG bodies under fmt=png bit-equal to the frames; a full
+    frame's request time with each; 400, 404); viewer_fps; a GIF turntable
+    read back with struct; the training monitor over 2 epochs of train
+    (K11 once an epoch, /preview.jpg equal to the plain encode at 88); and
+    the SH demo's /frame. Returns (lines, the device frames phase_jpeg
+    encodes, K11's launches on these paths)."""
     t_phase = time.perf_counter()
     lines = []
     kern, plain, g = viewer_scene(device)
@@ -2317,23 +2345,64 @@ def phase_viewer(device, smi):
             time.sleep(0.05)
     require(bool(started), "the viewer server did not start")
     url = f"http://127.0.0.1:{started[0].server_address[1]}"
+    jpeg_frame_ms = {"jpeg": [], "png": []}
+    k11_launches = 0
+    full = f"az=0.6&el=0.35&w={WIDTH}&h={HEIGHT}"
     try:
-        for query, kw in ((f"az=0.6&el=0.35&w={WIDTH}&h={HEIGHT}", dict(view)),
-                          (f"az=0.6&el=0.35&w={WIDTH}&h={HEIGHT}&lores=1&fmt=jpeg",
-                           dict(view, lores=True)),
+        for query, kw in ((full, dict(view)),
+                          (f"{full}&fmt=png", dict(view)),
+                          (f"{full}&lores=1&fmt=jpeg", dict(view, lores=True)),
                           (f"az=1.2&el=0.2&w={WIDTH}&h={HEIGHT}&mode=inverse&markers=1&axes=1",
                            dict(azimuth=1.2, elevation=0.2, width=WIDTH, height=HEIGHT,
-                                mode="inverse", markers=True, axes=True))):
+                                mode="inverse", markers=True, axes=True)),
+                          (f"az=1.2&el=0.2&w={WIDTH}&h={HEIGHT}&mode=inverse&markers=1&axes=1"
+                           "&fmt=png", dict(azimuth=1.2, elevation=0.2, width=WIDTH,
+                                            height=HEIGHT, mode="inverse", markers=True,
+                                            axes=True))):
+            is_png = query.endswith("fmt=png")
+            reset_launches()
             t0 = time.perf_counter()
             status, ctype, body = http_get(f"{url}/render?{query}")
             ms = (time.perf_counter() - t0) * 1e3
-            require(status == 200 and ctype == "image/png", f"/render?{query}: {status} {ctype}")
-            pixels, mode = image_io.decode_png(body)
-            want = kern.render(**kw)
-            require(mode == "RGB" and np.array_equal(pixels, want),
-                    f"/render?{query}: the PNG body is not the frame render() gives")
-            lines.append(f"HTTP /render?{query}: 200 image/png, {len(body)} B in {ms:.1f} ms, "
-                         f"decoded {pixels.shape[1]}x{pixels.shape[0]} bit-equal to render()")
+            launches = {k: w.launches for k, w in WRAPPERS.items()}
+            per_request = (per_frame if is_png else
+                           dict(per_frame, **{"K3 multi_cumsum": 3 + jpeg.SCANS,
+                                              "K11 encode_jpeg": 1}))
+            require(launches == {k: per_request.get(k, 0) for k in WRAPPERS},
+                    f"/render?{query} launched {launches}")
+            k11_launches += launches["K11 encode_jpeg"]
+            want = kern.render_device(**kw)
+            if is_png:
+                require(status == 200 and ctype == "image/png",
+                        f"/render?{query}: {status} {ctype}")
+                pixels, mode = image_io.decode_png(body)
+                require(mode == "RGB" and np.array_equal(pixels, want.cpu().numpy()),
+                        f"/render?{query}: the PNG body is not the frame render() gives")
+                lines.append(f"HTTP /render?{query}: 200 image/png, {len(body)} B in {ms:.1f} "
+                             f"ms, decoded {pixels.shape[1]}x{pixels.shape[0]} bit-equal to "
+                             f"render(); launches K1 1, K3 3, K4 1")
+            else:
+                require(status == 200 and ctype == "image/jpeg",
+                        f"/render?{query}: {status} {ctype}")
+                require(body == encode_jpeg_plain(want, 90),
+                        f"/render?{query}: the JPEG body is not the plain encode of the frame")
+                decoded = image_io.decode_jpeg_cuda(body, device)
+                db = float(psnr(decoded.float() / 255, want.float() / 255))
+                lines.append(f"HTTP /render?{query}: 200 image/jpeg, {len(body)} B in {ms:.1f} "
+                             f"ms, bytes equal to the plain encode (PIL's) of render()'s frame, "
+                             f"nvJPEG's decode {db:.2f} dB from it; launches K1 1, K3 "
+                             f"{3 + jpeg.SCANS}, K4 1, K11 1")
+        # a full frame over HTTP, JPEG beside PNG, in turns
+        for fmt in ("jpeg", "png", "png", "jpeg") * 3:
+            t0 = time.perf_counter()
+            status, ctype, body = http_get(f"{url}/render?{full}&fmt={fmt}")
+            jpeg_frame_ms[fmt].append(((time.perf_counter() - t0) * 1e3, len(body)))
+            require(status == 200 and ctype == f"image/{fmt}", f"/render {fmt}: {status} {ctype}")
+        for fmt, runs in jpeg_frame_ms.items():
+            ms = sorted(m for m, _ in runs)
+            lines.append(f"HTTP /render {WIDTH}x{HEIGHT} fmt={fmt} ({smi}): median "
+                         f"{ms[len(ms) // 2]:.2f} ms a request over {len(ms)} (min {ms[0]:.2f}, "
+                         f"max {ms[-1]:.2f}), body {runs[0][1]} B")
         for path, code in (("/render?mode=wire", 400), ("/nope", 404)):
             status, _, _ = http_get(url + path)
             require(status == code, f"{path}: {status}, not {code}")
@@ -2344,6 +2413,9 @@ def phase_viewer(device, smi):
         started[0].shutdown()
         thread.join(timeout=60)
     require(not thread.is_alive(), "the viewer server did not stop")
+    frames = {f"viewer frame {WIDTH}x{HEIGHT}": kern.render_device(**view),
+              "viewer frame 640x480": kern.render_device(**dict(view, width=640, height=480)),
+              "viewer drag preview": kern.render_device(**dict(view, lores=True))}
 
     del kern, plain
     reset_launches()
@@ -2384,28 +2456,241 @@ def phase_viewer(device, smi):
     pool, cams, gts, scene_size, cfg = train_setup(device)
     cfg = dataclasses.replace(cfg, epochs=2)
     mon = TrainingMonitor(cams[0], cfg, port=0, log_fn=lambda *_: None)
+    mon_frames = []
+    monitor.frame_u8 = lambda img: mon_frames.append(frame_u8(img)) or mon_frames[-1]
     try:
+        reset_launches()
         t0 = time.perf_counter()
         train(pool, cams, gts, cfg, scene_size, seed=SEED, log_fn=lambda *_: None,
               eval_every=1, epoch_cb=mon.epoch_cb)
         seconds = time.perf_counter() - t0
+        require(jpeg.encode_jpeg.launches == 2,
+                f"monitor: K11 launched {jpeg.encode_jpeg.launches} times over 2 epochs")
+        k11_launches += jpeg.encode_jpeg.launches
         murl = f"http://127.0.0.1:{mon.port}"
         status, _, body = http_get(murl + "/history")
         hist = json.loads(body)
         require(status == 200 and hist["epoch"] == 2 and len(hist["loss"]) == 2,
                 f"monitor /history: {status} {hist}")
-        status, ctype, body = http_get(murl + "/preview.png")
-        pixels, _ = image_io.decode_png(body)
-        require(status == 200 and ctype == "image/png" and pixels.shape == (HEIGHT, WIDTH, 3),
-                f"monitor /preview.png: {status} {ctype} {pixels.shape}")
-        lines.append(f"monitor: train 2 epochs x {N_VIEWS} views in {seconds:.2f} s; /history "
-                     f"epoch {hist['epoch']}, loss {[round(v, 6) for v in hist['loss']]}, psnr "
-                     f"{[round(p, 3) for _, p in hist['psnr']]}; /preview.png {len(body)} B "
-                     f"decodes to {pixels.shape[1]}x{pixels.shape[0]}")
+        status, ctype, jbody = http_get(murl + "/preview.jpg")
+        require(len(mon_frames) == 2 and mon_frames[-1].shape == (HEIGHT, WIDTH, 3),
+                f"the monitor encoded {len(mon_frames)} frames over 2 epochs")
+        require(status == 200 and ctype == "image/jpeg"
+                and jbody == encode_jpeg_plain(mon_frames[-1], 88),
+                f"monitor /preview.jpg: {status} {ctype}, not the plain encode at 88 of its frame")
+        lines.append(f"monitor: train 2 epochs x {N_VIEWS} views in {seconds:.2f} s, K11 once an "
+                     f"epoch; /history epoch {hist['epoch']}, loss "
+                     f"{[round(v, 6) for v in hist['loss']]}, psnr "
+                     f"{[round(p, 3) for _, p in hist['psnr']]}; /preview.jpg {len(jbody)} B "
+                     f"equal to the plain encode at 88 of the frame it rendered")
     finally:
+        monitor.frame_u8 = frame_u8
         mon.close()
+
+    strip, served = sh_demo_frame(device)
+    frames["SH demo strip"] = strip
+    k11_launches += 1
+    lines.append(f"SH demo /frame: 200 image/jpeg, {len(served)} B, equal to the plain encode "
+                 f"at 90 of its {strip.shape[1]}x{strip.shape[0]} strip; launches K3 "
+                 f"{jpeg.SCANS}, K11 1")
     lines.append(f"viewer phase: {time.perf_counter() - t_phase:.1f} s")
+    return lines, frames, k11_launches
+
+
+def sh_demo_frame(device):
+    """The SH demo's server on the card (``serve_spheres`` on the procedural
+    texture at its default height, degree 5): one /frame, which must be
+    image/jpeg equal to the plain encode at 90 of the strip it rendered
+    (recorded) and launch K11 once. Returns (the uint8 strip, the body)."""
+    img = sh_demo.procedural_texture(128, 256)
+    coeffs, _ = sh_demo.fit_sh(img, 5, device)
+    served = []
+    make = sh_demo.make_sphere_renderer
+
+    def recording(*args, **kw):
+        render_strip = make(*args, **kw)
+        return lambda angle: served.append(render_strip(angle)) or served[-1]
+
+    started = []
+    sh_demo.make_sphere_renderer = recording
+    try:
+        thread = threading.Thread(target=sh_demo.serve_spheres, args=(img, coeffs),
+                                  kwargs=dict(port=0, device=device, on_ready=started.append),
+                                  daemon=True)
+        with contextlib.redirect_stdout(io.StringIO()):
+            thread.start()
+            for _ in range(600):
+                if started:
+                    break
+                time.sleep(0.05)
+        require(bool(started), "the SH demo server did not start")
+        try:
+            reset_launches()
+            status, ctype, body = http_get(
+                f"http://127.0.0.1:{started[0].server_address[1]}/frame?angle=0.5")
+            launches = {k: w.launches for k, w in WRAPPERS.items()}
+            want = {"K3 multi_cumsum": jpeg.SCANS, "K11 encode_jpeg": 1}
+            require(launches == {k: want.get(k, 0) for k in WRAPPERS},
+                    f"SH demo /frame launched {launches}")
+        finally:
+            started[0].shutdown()
+            thread.join(timeout=60)
+    finally:
+        sh_demo.make_sphere_renderer = make
+    require(not thread.is_alive(), "the SH demo server did not stop")
+    require(len(served) == 1, f"the SH demo rendered {len(served)} strips for one /frame")
+    strip = (served[0] * 255).to(torch.uint8)
+    require(status == 200 and ctype == "image/jpeg" and body == encode_jpeg_plain(strip, 90),
+            f"SH demo /frame: {status} {ctype}, not the plain encode at 90 of its strip")
+    return strip, body
+
+
+# K11's bound: the frame read once and the scan written once, against the
+# integer operations libjpeg's baseline compressor needs for this frame, at
+# the data-sheet INT32 rate, each counted once whatever K11 repeats:
+# - colour (jccolor.c), a pixel of the frame: three sums of three products,
+#   their constants folded into one add, and a shift: 3 x (3 + 3 + 1) = 21;
+# - downsampling (jcsample.c h2v2), a chroma cell of an MCU: for Cb and Cr
+#   three adds of four samples, the bias add and a shift: 2 x 5 = 10;
+# - the islow DCT (jfdctint.c), a block that is not a dummy: 16 passes of
+#   12 multiplies and 32 adds (the file's own count), plus the outputs'
+#   scaling, 2 shifts and 6 descales (add, shift) in the row pass and 8
+#   descales in the column pass: 8 x 58 + 8 x 60 = 944;
+# - a coefficient of a block that is not a dummy: its sample's centring,
+#   and the quantiser (jcdctmgr.c: sign, absolute value, add of q/2,
+#   product by the reciprocal, shift, sign restored): 1 + 6 = 7;
+# - a coefficient of any block, dummies too: encode_one_block's zero test, 1;
+# - a Huffman token (a DC, a nonzero AC, a ZRL, an EOB): category by
+#   count of leading zeros (sign mask, absolute value, clz, subtract: 4),
+#   the symbol (shift, or: 2), code and length loads (2), the magnitude
+#   bits (sign correction, mask (1 << n) - 1, and: 4), two appends to the
+#   bit buffer (shift, or, count: 6): 18;
+# - a byte of the scan: its extraction from the bit buffer and the 0xFF
+#   test that stuffs it: 2.
+# The dummy blocks (DC copied, AC zero) are not transformed: they count
+# only their zero tests and their DC and EOB tokens. K11's ballots, scans
+# and its recomputation of the tokens in packing are its own mechanism and
+# are not counted.
+JPEG_OPS_PIXEL, JPEG_OPS_CELL, JPEG_OPS_BLOCK = 21, 10, 8 * 58 + 8 * 60
+JPEG_OPS_COEF, JPEG_OPS_TEST, JPEG_OPS_TOKEN, JPEG_OPS_BYTE = 7, 1, 18, 2
+
+
+def jpeg_tokens(coef):
+    """The Huffman tokens encode_one_block emits for int16 zigzag ``coef``
+    [n_mcu, 6, 64]: a DC a block, each nonzero AC, a ZRL for each 16 zeros
+    before a nonzero AC, and an EOB a block that ends in zeros."""
+    z = coef.reshape(-1, 64) != 0
+    ac = z[:, 1:]
+    k = torch.arange(1, 64, device=coef.device)
+    last = torch.cummax(torch.where(ac, k, 0), dim=1).values
+    prev = torch.cat([last.new_zeros(last.shape[0], 1), last[:, :-1]], dim=1)
+    zrl = int((((k - prev - 1) >> 4) * ac).sum())
+    return z.shape[0] + int(ac.sum()) + zrl + int((~z[:, 63]).sum())
+
+
+def jpeg_bound(frame, coef, scan_bytes, clock_mhz, n_sm):
+    """K11's bound on this frame and these coefficients (bytes: the frame
+    and the stuffed scan; operations: as JPEG_OPS_* count them)."""
+    h, w, _ = frame.shape
+    n_mcu = coef.shape[0]
+    real_blocks = -(-h // 8) * -(-w // 8) + 2 * n_mcu
+    ops = (JPEG_OPS_PIXEL * h * w + JPEG_OPS_CELL * n_mcu * 64
+           + real_blocks * (JPEG_OPS_BLOCK + 64 * JPEG_OPS_COEF)
+           + JPEG_OPS_TEST * n_mcu * 6 * 64 + JPEG_OPS_TOKEN * jpeg_tokens(coef)
+           + JPEG_OPS_BYTE * scan_bytes)
+    return bound(3 * h * w + scan_bytes, 0, 0, clock_mhz, n_sm, int_ops=ops)
+
+
+def jpeg_planted(frame, quality, want):
+    """The two planted faults K11's check must refuse: a quantisation table
+    one off in one entry, and one coefficient with a bit flipped."""
+    h, w, _ = frame.shape
+    qtab = jpeg.quant_table(frame.device, quality).clone()
+    qtab[0, 9] += 1
+    coef = jpeg.blocks(frame, jpeg.quant_table(frame.device, quality))
+    coef.view(-1)[coef.numel() // 2 + 1] ^= 4
+    faults = {"a quantisation table one off in one entry": jpeg.blocks(frame, qtab),
+              "one coefficient bit flipped": coef}
+    for label, bad in faults.items():
+        out, n = jpeg.scan(bad, w, h)
+        got = headers(w, h, quality) + out[:int(n.item())].cpu().numpy().tobytes() + b"\xff\xd9"
+        require(got != want, f"K11: the planted fault ({label}) was not refused")
+    return list(faults)
+
+
+def k11_kernel_counts(device):
+    """K11's device kernels a frame at the three viewer sizes, against its
+    plan and K3's two scans (profiled; run among the other kernel counts,
+    early in the script, where every profile window has held records)."""
+    lines = []
+    for h, w in ((HEIGHT, WIDTH), (480, 640), (136, 244)):
+        frame = torch.from_numpy(jpeg_frame("gradient", h, w)).to(device)
+        plan = jpeg.kernel_plan(w, h)
+        kernels = require_kernel_count(f"K11 at {w}x{h}", lambda: jpeg.launch(frame, 90),
+                                       plan["kernels"] + jpeg.SCANS)
+        lines.append(f"K11 at {w}x{h}: device kernels a frame {kernels}; plan {plan}")
     return lines
+
+
+def phase_jpeg(frames, flush, clock_mhz, n_sm, smi, launches):
+    """K11 against its plain version on the viewer's frames (979x546, 640x480,
+    the 244x136 drag preview), the SH demo's strip and a noise frame at
+    979x546: bytes and coefficients equal, planted faults refused, nvJPEG's
+    decode of K11's bytes and its PSNR to the frame; its kernels without a
+    spill; its time beside the plain version's, nvJPEG's encoder's and its
+    bound at the three viewer sizes (its kernel count is
+    :func:`k11_kernel_counts`').
+    The entry's times are the 979x546 frame's; ``launches`` are K11's on the
+    viewer's, the monitor's and the SH demo's paths."""
+    lines = []
+    for i, name in enumerate(jpeg.KERNELS):
+        info = jpeg.kernel_info(i)
+        require(info["local_bytes"] == 0, f"K11 {name} spills: {info}")
+        lines.append(f"K11 {name}: {info['registers']} registers, {info['shared_bytes']} B shared, "
+                     f"{info['local_bytes']} B local, {info['blocks_per_sm']} blocks an SM of "
+                     f"{info['threads']} threads")
+    frames = dict(frames)
+    frames[f"noise {WIDTH}x{HEIGHT}"] = torch.from_numpy(
+        jpeg_frame("noise", HEIGHT, WIDTH, seed=SEED)).to(frames[f"viewer frame {WIDTH}x{HEIGHT}"]
+                                                         .device)
+    worst, entry = 0.0, None
+    for label, frame in frames.items():
+        h, w, _ = frame.shape
+        for quality in (90, 88):
+            got = jpeg.encode_jpeg(frame, quality)
+            want = encode_jpeg_plain(frame, quality)
+            coef = jpeg.blocks(frame, jpeg.quant_table(frame.device, quality))
+            plain_coef = coefficients(frame, quality)
+            worst = max(worst, float((coef.float() - plain_coef.float()).abs().max()))
+            require(got == want and torch.equal(coef, plain_coef),
+                    f"K11 on {label} at quality {quality}: not the plain version's bytes")
+        decoded = image_io.decode_jpeg_cuda(got, frame.device)
+        db = float(psnr(decoded.float() / 255, frame.float() / 255))
+        faults = jpeg_planted(frame, 88, want)
+        lines.append(f"K11 on {label} {w}x{h}: bytes equal to the plain version's at 90 and 88 "
+                     f"({len(got)} B at 88), coefficients equal; nvJPEG decodes it {db:.2f} dB "
+                     f"from the frame; refused: {', '.join(faults)}")
+        if label.startswith("noise") or label.startswith("SH demo"):
+            continue
+        t = timings(lambda: jpeg.launch(frame, 90), lambda: encode_jpeg_plain(frame, 90),
+                    clock_mhz, flush, library=lambda: image_io.nvjpeg_encode(frame, 90,
+                                                                              fetch=False))
+        t["call_ms"] = call_ms(lambda: jpeg.encode_jpeg(frame, 90))
+        scan_bytes = len(jpeg.encode_jpeg(frame, 90)) - len(headers(w, h, 90)) - 2
+        t.update(jpeg_bound(frame, jpeg.blocks(frame, jpeg.quant_table(frame.device, 90)),
+                            scan_bytes, clock_mhz, n_sm))
+        nv = len(image_io.nvjpeg_encode(frame, 90))
+        lines.append(f"K11 on {label} {w}x{h} at 90 ({smi}): {t['ms']:.4f} ms by CUDA events, "
+                     f"{t['call_ms']:.4f} ms a call with the length's read and the copy of "
+                     f"{scan_bytes} B, plain {t['plain_ms']:.4f} ms, nvJPEG's encoder "
+                     f"{t['library_ms']:.4f} ms ({nv} B, not PIL's bytes), bound "
+                     f"{t['bound_ms']:.5f} ms by {t['bound_by']}")
+        if entry is None:
+            entry = t
+    return {"name": "K11 encode_jpeg", "route": "cuda",
+            "source": "easygaussiansplatting_tpu_torch/csrc/jpeg_encode.cu",
+            "replaces": "easygaussiansplatting_tpu/viewer/server.py:299 _encode (PIL)",
+            "launches": launches, "max_abs_err": worst, **entry}, lines
 
 
 # The multi-device phase (parallel/) at bench.py's width: (a) world size 1
@@ -2782,6 +3067,8 @@ def main():
         print_timing(entry)
         kernels.append(entry)
 
+    for line in k11_kernel_counts(device):
+        print(line, flush=True)
     for line in phase_profile("render", render_once, wall_ms, RENDER_GROUPS)[1]:
         print(line, flush=True)
 
@@ -2835,8 +3122,15 @@ def main():
         print(line, flush=True)
     for line in phase_bench_scene(smi):
         print(line, flush=True)
-    for line in phase_viewer(device, smi):
+    lines, frames, k11_launches = phase_viewer(device, smi)
+    for line in lines:
         print(line, flush=True)
+    entry, lines = phase_jpeg(frames, flush, clock_mhz, n_sm, smi, k11_launches)
+    for line in lines:
+        print(line, flush=True)
+    print_timing(entry)
+    kernels.append(entry)
+    del frames
     for line in phase_multidevice(device, smi):
         print(line, flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s", flush=True)

@@ -2,8 +2,9 @@
 
 Port of easygaussiansplatting_tpu/data/fixtures.py (numpy on both sides, so
 the arrays are bit-equal): the reference's 4-Gaussian scene and its 32x16
-test camera. Also the kernels' edge cases (below), and a COLMAP scene
-writer (:func:`write_colmap_scene`) for the tests and chip_smoke.py.
+test camera. Also the kernels' edge cases (below), the JPEG encoder's
+frames (:func:`jpeg_frame`), and a COLMAP scene writer
+(:func:`write_colmap_scene`) for the tests and chip_smoke.py.
 """
 
 from pathlib import Path
@@ -231,6 +232,34 @@ def culled_scene(n=8):
     rots = np.tile(np.array([[1.0, 0, 0, 0]], np.float32), (n, 1))
     return (np.full((n, 3), -50.0, np.float32), np.ones((n, 3), np.float32),
             np.full(n, 0.5, np.float32), np.full((n, 3), 0.1, np.float32), rots)
+
+
+# K11's frame sizes as (height, width): a lone pixel, one block, odd edges
+# that leave dummy blocks (15 wide x 17 high: a dummy Y row; 17 x 9: a dummy
+# Y column), one MCU, and the served sizes (the viewer's drag preview
+# 244 x 136 and full frame 979 x 546, which has both, 640 x 480, the SH
+# demo's 960 x 192 strip)
+JPEG_SIZES = ((1, 1), (8, 8), (17, 15), (16, 16), (9, 17), (64, 96), (136, 244), (480, 640),
+              (192, 960), (546, 979))
+JPEG_KINDS = ("noise", "flat0", "flat255", "gradient", "checker")
+
+
+def jpeg_frame(kind, height, width, seed=0):
+    """An [H,W,3] uint8 frame of ``kind``: uniform noise (long AC codes, many
+    0xFF bytes in the scan), flat 0 or 255 (the quantiser's and the DC's
+    extremes), a gradient in each channel, or 8x8 squares of 0 and 255 in
+    turn (DC differences of category 11 at quality 100)."""
+    if kind == "noise":
+        return np.random.default_rng(seed).integers(0, 256, (height, width, 3), dtype=np.uint8)
+    if kind in ("flat0", "flat255"):
+        return np.full((height, width, 3), 0 if kind == "flat0" else 255, np.uint8)
+    yy, xx = np.mgrid[0:height, 0:width]
+    if kind == "checker":
+        return np.repeat((((yy >> 3) + (xx >> 3)) % 2 * 255).astype(np.uint8)[..., None], 3, -1)
+    if kind != "gradient":
+        raise ValueError(f"unknown frame kind {kind!r}")
+    return np.stack([xx * 255 // max(width - 1, 1), yy * 255 // max(height - 1, 1),
+                     (3 * xx + 5 * yy) % 256], -1).astype(np.uint8)
 
 
 def rotmat2qvec(R):

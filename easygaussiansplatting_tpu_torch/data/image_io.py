@@ -299,7 +299,13 @@ def nvjpeg_library():
     lib.egs_nvjpeg_info.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p]
     lib.egs_nvjpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
                                       ctypes.c_int, ctypes.c_void_p]
-    lib.egs_nvjpeg_info.restype = lib.egs_nvjpeg_decode.restype = ctypes.c_int
+    lib.egs_nvjpeg_encode.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_void_p]
+    lib.egs_nvjpeg_encoded.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t),
+                                       ctypes.c_void_p]
+    for fn in (lib.egs_nvjpeg_info, lib.egs_nvjpeg_decode, lib.egs_nvjpeg_encode,
+               lib.egs_nvjpeg_encoded):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -329,6 +335,28 @@ def decode_jpeg_cuda(data, device):
 
 
 decode_jpeg_cuda.calls = 0
+
+
+def nvjpeg_encode(rgb, quality, fetch=True):
+    """nvJPEG's encoder on a contiguous CUDA [H,W,3] uint8 frame (baseline
+    4:2:0 at ``quality``, on torch's current stream): the JPEG's bytes, or
+    with ``fetch=False`` nothing (the encode is only queued). The port
+    encodes with K11 (ops/kernels/jpeg.py), byte-equal to PIL; this is the
+    yardstick chip_smoke.py times beside it, and its bytes are not PIL's."""
+    lib = nvjpeg_library()
+    height, width, _ = rgb.shape
+    stream = torch.cuda.current_stream(rgb.device).cuda_stream
+    _nvjpeg_check(lib.egs_nvjpeg_encode(rgb.data_ptr(), width * 3, width, height, int(quality),
+                                        stream), "nvjpegEncodeImage")
+    if not fetch:
+        return None
+    length = ctypes.c_size_t()
+    _nvjpeg_check(lib.egs_nvjpeg_encoded(None, ctypes.byref(length), stream),
+                  "nvjpegEncodeRetrieveBitstream")
+    out = ctypes.create_string_buffer(length.value)
+    _nvjpeg_check(lib.egs_nvjpeg_encoded(out, ctypes.byref(length), stream),
+                  "nvjpegEncodeRetrieveBitstream")
+    return out.raw[:length.value]
 
 
 # ---------------------------------------------------------------- resize

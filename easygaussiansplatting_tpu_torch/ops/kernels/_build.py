@@ -75,6 +75,16 @@ SIGNATURES = {
     # block and their layout, to six or seven ints
     "egs_tile_sums_info": [_I, _P],
     "egs_stream_sums_info": [_P],
+    # K11, the JPEG encoder: (a) blocks, (b) lengths, (c) pack, (d) stuff
+    "egs_jpeg_blocks": [_P, _I, _I, _P, _P, _P],
+    "egs_jpeg_lengths": [_P, _L, _P, _P, _P],
+    "egs_jpeg_pack": [_P, _L, _P, _P, _P, _L, _P, _P],
+    "egs_jpeg_stuff": [_P, _P, _L, _P, _L, _P, _P, _P],
+    # its plan for a frame size, to seven int64s; a kernel's registers,
+    # shared bytes, local (spill) bytes, resident blocks an SM and threads,
+    # to five ints
+    "egs_jpeg_plan": [_I, _I, _PL],
+    "egs_jpeg_info": [_I, _P],
 }
 
 

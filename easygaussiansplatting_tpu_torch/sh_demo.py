@@ -12,7 +12,8 @@ The solve runs in torch float32 on ``--device`` (TF32 off on the card); the
 JAX function runs it outside any Pallas kernel, so no kernel of the port is
 reached. ``--image`` is decoded by the port's data/image_io (PNG by its own
 decoder, JPEG by nvJPEG on the card) and resized by its Pillow-exact resize:
-no PIL on the card. The grid and the served frames are PNG.
+no PIL on the card. The grid is a PNG; the served frames are JPEGs with
+PIL's bytes, encoded on the card by K11 (ops/kernels/jpeg.py).
 
     python -m easygaussiansplatting_tpu_torch.sh_demo                      # PNG grid
     python -m easygaussiansplatting_tpu_torch.sh_demo --image earth.png
@@ -35,7 +36,8 @@ import torch
 
 from easygaussiansplatting_tpu_torch.data.image_io import decode_file, pillow_resize, to_rgb
 from easygaussiansplatting_tpu_torch.utils.device import resolve_device
-from easygaussiansplatting_tpu_torch.utils.image import encode_png, save_png
+from easygaussiansplatting_tpu_torch.ops.kernels.jpeg import encode_jpeg
+from easygaussiansplatting_tpu_torch.utils.image import save_png
 from easygaussiansplatting_tpu_torch.utils.sh import sh_basis
 
 
@@ -175,7 +177,8 @@ loop();
 def serve_spheres(img, coeffs, port=8081, host="127.0.0.1", device="cuda", on_ready=None):
     """Serve the rotating-spheres page until interrupted (or until
     ``shutdown()`` of the server that ``on_ready(server)`` receives); each
-    ``/frame?angle=`` is a PNG."""
+    ``/frame?angle=`` is a JPEG at quality 90 (PIL's bytes; on the card
+    encoded by K11 where the strip was rendered)."""
     render = make_sphere_renderer(img, coeffs, device=device)
 
     class Handler(BaseHTTPRequestHandler):
@@ -195,8 +198,10 @@ def serve_spheres(img, coeffs, port=8081, host="127.0.0.1", device="cuda", on_re
                 self._send(200, _SH_PAGE.encode(), "text/html")
             elif url.path == "/frame":
                 q = {k: v[-1] for k, v in parse_qs(url.query).items()}
-                frame = render(float(q.get("angle", 0.0))).cpu().numpy()
-                self._send(200, encode_png((frame * 255).astype(np.uint8)), "image/png")
+                frame = render(float(q.get("angle", 0.0)))
+                # the JAX demo's (frame * 255) cast to uint8, on the device
+                body = encode_jpeg((frame * 255).to(torch.uint8), quality=90)
+                self._send(200, body, "image/jpeg")
             else:
                 self._send(404, b"not found", "text/plain")
 

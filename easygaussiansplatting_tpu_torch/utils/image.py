@@ -41,10 +41,16 @@ def rainbow_sh(scalars, scalar_min=0.0, scalar_max=255.0):
     return (colors - 0.5) / SH_C0[0]
 
 
+def frame_u8(img):
+    """[3,H,W] float tensor in [0,1] -> contiguous [H,W,3] uint8 tensor on
+    its device, as the JAX render CLI converts it: clipped, multiplied by
+    255 in the image's float type and truncated."""
+    return (torch.clamp(img, 0.0, 1.0).permute(1, 2, 0) * 255).to(torch.uint8).contiguous()
+
+
 def to_uint8(img):
-    """[3,H,W] float image in [0,1] -> [H,W,3] uint8, clipped, as the JAX
-    render CLI converts it."""
-    return (np.clip(np.transpose(np.asarray(img), (1, 2, 0)), 0, 1) * 255).astype(np.uint8)
+    """:func:`frame_u8` of a host [3,H,W] float array, as a numpy array."""
+    return frame_u8(torch.tensor(np.asarray(img))).numpy()
 
 
 def encode_png(rgb):

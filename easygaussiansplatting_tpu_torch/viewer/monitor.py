@@ -4,9 +4,9 @@ Port of easygaussiansplatting_tpu/viewer/monitor.py (``TrainingMonitor``):
 the training loop's ``epoch_cb`` renders the current model once per epoch
 (``render_pool_image``, on the card K1, K3's three calls and K4), and a
 small HTTP server hands the latest frame and the loss / PSNR history to a
-page that refreshes itself. The frame is a PNG (the card's machine has no
-JPEG encoder): the page asks for ``/preview.png``, and ``/preview.jpg``, the
-JAX page's address, answers the same PNG.
+page that refreshes itself. The frame is a JPEG at quality 88 with PIL's
+bytes, encoded where it was rendered (on the card by K11,
+``ops/kernels/jpeg.py``) and served at ``/preview.jpg``, as in JAX.
 
     monitor = TrainingMonitor(cam, config, port=8090)
     train(..., epoch_cb=monitor.epoch_cb)
@@ -16,15 +16,16 @@ import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from easygaussiansplatting_tpu_torch.ops.kernels.jpeg import encode_jpeg
 from easygaussiansplatting_tpu_torch.train.loop import render_pool_image
-from easygaussiansplatting_tpu_torch.utils.image import encode_png, to_uint8
+from easygaussiansplatting_tpu_torch.utils.image import frame_u8
 
 _PAGE = """<!doctype html><html><head><title>training monitor</title><style>
 body{background:#111;color:#ddd;font-family:monospace;text-align:center}
 img{max-width:95vw;border:1px solid #444;margin-top:8px}
 #stats{margin:8px}</style></head><body>
 <div id="stats">waiting for first epoch...</div>
-<img id="frame" src="/preview.png">
+<img id="frame" src="/preview.jpg">
 <script>
 async function tick(){
   try{
@@ -34,7 +35,7 @@ async function tick(){
     document.getElementById('stats').textContent =
       `epoch ${h.epoch} | loss ${loss} | psnr ${ps} | alive ` +
       (h.n_alive.length ? h.n_alive[h.n_alive.length-1] : '-');
-    document.getElementById('frame').src = '/preview.png?t=' + Date.now();
+    document.getElementById('frame').src = '/preview.jpg?t=' + Date.now();
   }catch(e){}
   setTimeout(tick, 2000);
 }
@@ -50,7 +51,7 @@ class TrainingMonitor:
         self.cam = cam
         self.config = config
         self.lock = threading.Lock()
-        self.frame = None  # PNG bytes
+        self.frame = None  # JPEG bytes
         self.epoch = 0
         self.history = {"loss": [], "psnr": [], "n_alive": []}
         self.httpd = ThreadingHTTPServer((host, port), self._handler())
@@ -61,7 +62,7 @@ class TrainingMonitor:
 
     def epoch_cb(self, epoch, pool, adam_state=None, stats=None, key=None, history=None):
         img, _ = render_pool_image(pool, self.cam, self.config, need_grads=False)
-        frame = encode_png(to_uint8(img.cpu().numpy()))
+        frame = encode_jpeg(frame_u8(img), quality=88)
         with self.lock:
             self.frame = frame
             self.epoch = epoch
@@ -94,13 +95,13 @@ class TrainingMonitor:
                 path = self.path.split("?")[0]
                 if path in ("/", "/index.html"):
                     self._send(200, _PAGE.encode(), "text/html")
-                elif path in ("/preview.png", "/preview.jpg"):
+                elif path == "/preview.jpg":
                     with mon.lock:
                         frame = mon.frame
                     if frame is None:
                         self._send(404, b"no frame yet", "text/plain")
                     else:
-                        self._send(200, frame, "image/png")
+                        self._send(200, frame, "image/jpeg")
                 elif path == "/history":
                     with mon.lock:
                         body = json.dumps({"epoch": mon.epoch, **mon.history})

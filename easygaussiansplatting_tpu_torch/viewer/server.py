@@ -9,15 +9,19 @@ and inverse; the dataset cameras as oriented, image-textured frusta
 rgb, flat, intensity and rainbow; world axes and a ground grid drawn on the
 frame.
 
+A frame goes out as JPEG (quality 90) unless ``fmt`` names another format,
+then as PNG, as in the JAX module; the JPEG bytes are PIL's. On the card
+the frame stays on the device up to its encode by K11
+(``ops/kernels/jpeg.py``), so only the compressed bytes cross to the host.
+
 Where the port differs from the JAX module:
 
-* Every image goes out as PNG (``Content-Type: image/png``) whatever ``fmt``
-  asks for: the card's machine has no PIL, so there is no JPEG encoder.
 * The axis and grid lines are drawn by :func:`draw_line`, the port's own
   numpy rasteriser, where the JAX module calls PIL's ``ImageDraw.line``; it
   is not pixel-equal to PIL's.
 * No jit: each frame calls ``ops/rasterize.render`` (on the card K1, K3's
-  three calls and K4 once), on parameters that stay on the device.
+  three calls and K4 once; a JPEG adds K11 and K3's two calls), on
+  parameters that stay on the device.
 """
 
 import json
@@ -32,9 +36,10 @@ import torch
 
 from easygaussiansplatting_tpu_torch.data.gau_io import SH_C0
 from easygaussiansplatting_tpu_torch.data.synthetic import look_at_camera
+from easygaussiansplatting_tpu_torch.ops.kernels.jpeg import encode_jpeg
 from easygaussiansplatting_tpu_torch.ops.rasterize import render, resolve_backend
 from easygaussiansplatting_tpu_torch.utils.device import resolve_device
-from easygaussiansplatting_tpu_torch.utils.image import encode_png, rainbow_sh
+from easygaussiansplatting_tpu_torch.utils.image import encode_png, frame_u8, rainbow_sh
 from easygaussiansplatting_tpu_torch.viewer.headless import camera_frusta
 
 MODES = ("normal", "ball", "inverse")
@@ -86,7 +91,8 @@ def draw_line(img, p0, p1, color, width=1):
 
 class SceneRenderer:
     """One scene rendered on one device; thread-safe (the card is one: a
-    lock covers each frame's upload, render and copy back to the host)."""
+    lock covers each frame's upload and render; what follows runs on the
+    same stream, in order)."""
 
     LORES_DIV = 4  # drag-preview downscale
     DEV_CACHE_MAX = 8  # bound on device-resident parameter sets
@@ -160,26 +166,34 @@ class SceneRenderer:
         ])
         return look_at_camera(pos, center, width, height, fov_f * width, cam_id=0)
 
-    def render(self, *, azimuth=0.0, elevation=0.3, radius=None, center=None, width=640,
-               height=480, mode="normal", markers=False, cloud=False, axes=False, grid=False,
-               fov_f=0.9, cloud_mode="rgb", lores=False):
-        """Render one view; returns [H,W,3] uint8.
+    def render(self, **view):
+        """Render one view; returns [H,W,3] uint8 (the arguments are
+        :meth:`render_device`'s).
 
         `lores`: render at 1/LORES_DIV resolution, the interactive-drag
         preview (the browser scales it back up; a full-resolution frame
         follows on mouse release). The camera is rebuilt from the same
         fov_f, so fx scales with width and the field of view is identical."""
+        return self.render_device(**view).cpu().numpy()
+
+    def render_device(self, *, azimuth=0.0, elevation=0.3, radius=None, center=None, width=640,
+                      height=480, mode="normal", markers=False, cloud=False, axes=False,
+                      grid=False, fov_f=0.9, cloud_mode="rgb", lores=False):
+        """:meth:`render`'s frame as an [H,W,3] uint8 tensor on the
+        renderer's device, for an encode there. The axis and grid lines are
+        drawn on the host (:func:`draw_line`) and the drawn frame uploaded
+        again."""
         cam = self.camera(azimuth=azimuth, elevation=elevation, radius=radius, center=center,
                           width=width, height=height, fov_f=fov_f, lores=lores)
-        with self.lock:  # one card: uploads, renders and read-backs are serialised
+        with self.lock:  # one card: uploads and renders are serialised
             dev = self._device_params(markers=markers, cloud=cloud, cloud_mode=cloud_mode,
                                       mode=mode)
             img, _ = render(*dev, cam, backend=self.backend, max_patches=self.max_patches,
                             sh_degree=self.sh_degree, need_grads=False, device=self.device)
-            img = torch.clamp(img, 0.0, 1.0).cpu().numpy()
-        out = (np.transpose(img, (1, 2, 0)) * 255).astype(np.uint8)
+            out = frame_u8(img)
         if axes or grid:
-            out = self._draw_overlays(out, cam, axes=axes, grid=grid)
+            drawn = self._draw_overlays(out.cpu().numpy(), cam, axes=axes, grid=grid)
+            out = torch.from_numpy(drawn).to(self.device)
         return out
 
     def _device_params(self, *, markers, cloud, cloud_mode, mode):
@@ -322,7 +336,7 @@ def make_handler(renderer):
                             q.get("cloud_mode", "rgb") not in CLOUD_MODES:
                         self._send(400, b"bad mode/cloud_mode", "text/plain")
                         return
-                    img = renderer.render(
+                    view = dict(
                         azimuth=float(q.get("az", 0.0)),
                         elevation=float(q.get("el", 0.3)),
                         radius=float(q["r"]) if "r" in q else None,
@@ -339,7 +353,11 @@ def make_handler(renderer):
                         cloud_mode=q.get("cloud_mode", "rgb"),
                         lores=q.get("lores", "0") == "1",
                     )
-                    self._send(200, encode_png(img), "image/png")  # PNG for every fmt
+                    if q.get("fmt", "jpeg") == "jpeg":
+                        body = encode_jpeg(renderer.render_device(**view), quality=90)
+                        self._send(200, body, "image/jpeg")
+                    else:
+                        self._send(200, encode_png(renderer.render(**view)), "image/png")
                 else:
                     self._send(404, b"not found", "text/plain")
             except Exception as e:  # surface errors to the browser console

@@ -2,7 +2,8 @@
 kernel render path against the all-plain path, the kernel training step
 against the all-plain step, degenerate scenes through the kernels, and
 the photo path (nvJPEG within its limits of PIL's decode, the resize and
-the PNG decoder bit-equal to PIL) against the committed fixture archive.
+the PNG decoder bit-equal to PIL) against the committed fixture archive,
+and the JPEG encoder K11 byte-equal to its plain version.
 Every test here needs a CUDA device and nvcc, and skips without one.
 
 The file imports no JAX, so it also runs where only PyTorch is installed:
@@ -21,6 +22,8 @@ import torch
 from easygaussiansplatting_tpu_torch.data import example_camera, image_io
 from easygaussiansplatting_tpu_torch.data.dataset import load_image
 from easygaussiansplatting_tpu_torch.data.fixtures import (
+    JPEG_KINDS,
+    JPEG_SIZES,
     PRE_BLOCK,
     PRE_EDGES,
     SCAN_CASES,
@@ -29,6 +32,7 @@ from easygaussiansplatting_tpu_torch.data.fixtures import (
     SEG_TILE,
     culled_scene,
     degenerate_scene,
+    jpeg_frame,
     preprocess_case,
     scan_case,
     segment_case,
@@ -47,11 +51,19 @@ from easygaussiansplatting_tpu_torch.models.convert import gaussians_from_numpy
 from easygaussiansplatting_tpu_torch.models.gaussians import pool_from_arrays
 from easygaussiansplatting_tpu_torch.ops import stages
 from easygaussiansplatting_tpu_torch.ops.binning import bin_gaussians
-from easygaussiansplatting_tpu_torch.ops.kernels import preprocess, radix, rasterize, scan, sort
+from easygaussiansplatting_tpu_torch.ops.kernels import (
+    jpeg,
+    preprocess,
+    radix,
+    rasterize,
+    scan,
+    sort,
+)
 from easygaussiansplatting_tpu_torch.ops.rasterize import raster_from_aux, render
 from easygaussiansplatting_tpu_torch.probes import exp_dma_stream, micro_bench
 from easygaussiansplatting_tpu_torch.train.config import TrainConfig
 from easygaussiansplatting_tpu_torch.train.loop import loss_and_grads
+from easygaussiansplatting_tpu_torch.utils.jpeg import coefficients, encode_jpeg_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -1136,6 +1148,90 @@ def test_batched_step_on_two_gloo_ranks_matches_world_size_one(cuda, two_gloo_ra
     for k, want in grads.items():
         got = two_gloo_ranks["grads"][k].to(cuda)
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max()), k
+
+
+@pytest.mark.parametrize("quality", [50, 88, 90, 100])
+@pytest.mark.parametrize("kind", JPEG_KINDS)
+@pytest.mark.parametrize("size", JPEG_SIZES, ids=lambda s: f"{s[1]}x{s[0]}")
+def test_jpeg_kernel_equals_plain(cuda, size, kind, quality):
+    """K11's bytes equal the plain version's (PIL's), and its coefficients
+    (kernel (a)) the plain stages', at every size the CPU tests hold to PIL."""
+    frame = torch.from_numpy(jpeg_frame(kind, *size, seed=size[0] * 1000 + size[1]))
+    dev = frame.to(cuda)
+    coef = jpeg.blocks(dev, jpeg.quant_table(dev.device, quality))
+    assert torch.equal(coef.cpu(), coefficients(frame, quality))
+    assert jpeg.encode_jpeg(dev, quality) == encode_jpeg_plain(frame, quality)
+
+
+def test_jpeg_kernel_on_a_render(cuda):
+    """A kernel render at 979x546 through frame_u8, encoded by K11 and by
+    the plain version on the same device frame: equal bytes."""
+    from easygaussiansplatting_tpu_torch.utils.image import frame_u8
+
+    t = gaussians_from_numpy(_scene(0, 3000), cuda)
+    s = make_synthetic_scene(seed=0, n_gaussians=8, n_cams=1, width=979, height=546)
+    img, _ = render(*(t[k] for k in KEYS), s["cameras"][0], backend="cuda", need_grads=False,
+                    device=cuda)
+    frame = frame_u8(img)
+    assert frame.is_contiguous() and frame.shape == (546, 979, 3)
+    assert jpeg.encode_jpeg(frame, 90) == encode_jpeg_plain(frame.cpu(), 90)
+
+
+@pytest.mark.parametrize("size", [(1, 1), (17, 15), (546, 979), (1092, 1958)],
+                         ids=lambda s: f"{s[1]}x{s[0]}")
+def test_jpeg_plan(cuda, size):
+    """egs_jpeg_plan: an MCU of 16x16 pixels, 6 blocks an MCU, chunks of
+    1,024 bytes for 1,700 bits a block, twice that for the stuffed bytes;
+    four kernels and one memset of K11's own. One encode runs those four
+    kernels and K3's two (profiled)."""
+    h, w = size
+    plan = jpeg.kernel_plan(w, h)
+    mcus = -(-h // 16) * -(-w // 16)
+    packed_bytes = -(-mcus * 6 * 1700 // 8)
+    chunks = -(-packed_bytes // 1024)
+    assert plan == {"mcus": mcus, "blocks": 6 * mcus, "chunks": chunks, "words": 256 * chunks,
+                    "out_bytes": 2048 * chunks, "kernels": 4, "memsets": 1}
+    frame = torch.from_numpy(jpeg_frame("noise", h, w)).to(cuda)
+    marker = torch.zeros(256, dtype=torch.int32, device=cuda)
+    jpeg.encode_jpeg(frame)
+    torch.cuda.synchronize()
+    # A window can lose device records (never add one), its first ones most
+    # often: a marker kernel leads it, and one that lost a record is taken
+    # again, up to PROFILE_TRIES, as chip_smoke.py's require_kernel_count does.
+    want = [1] * len(jpeg.KERNELS) + [jpeg.SCANS]
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            marker.bitwise_not_()
+            torch.cuda.synchronize()
+            jpeg.launch(frame)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and "Memset" not in e.name
+                 and "bitwise_not" not in e.name]
+        counts = [sum(k in n for n in names) for k in jpeg.KERNELS + ("multi_scan_kernel",)]
+        assert all(c <= w for c, w in zip(counts, want)) and len(names) <= sum(want), names
+        if counts == want:
+            break
+    assert counts == want, names
+    assert len(names) == plan["kernels"] + jpeg.SCANS, names
+
+
+def test_jpeg_kernel_info(cuda):
+    """K11's four kernels as compiled: no spill, 256 threads a block."""
+    for i, name in enumerate(jpeg.KERNELS):
+        info = jpeg.kernel_info(i)
+        assert info["local_bytes"] == 0 and info["threads"] == 256, (name, info)
+        assert 0 < info["registers"] <= 255 and info["blocks_per_sm"] >= 1, (name, info)
+
+
+def test_jpeg_kernel_counts_one_launch_a_frame(cuda):
+    frame = torch.from_numpy(jpeg_frame("gradient", 136, 244)).to(cuda)
+    before, scans = jpeg.encode_jpeg.launches, scan.multi_cumsum.launches
+    data = jpeg.encode_jpeg(frame, 90)
+    assert jpeg.encode_jpeg.launches == before + 1
+    assert scan.multi_cumsum.launches == scans + jpeg.SCANS
+    decoded = image_io.decode_jpeg_cuda(data, cuda)
+    assert decoded.shape == frame.shape
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--gloo-rank"]:

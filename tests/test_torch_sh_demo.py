@@ -1,8 +1,10 @@
 """PyTorch port: the SH demo against the repository's root sh_demo.py (JAX).
 The fit within 1e-4 of JAX's coefficients at degree 5, the sphere strip
 within 1e-5 of JAX's, --image read bit-equal to JAX's PIL path (the port's
-decoders and Pillow-exact resize), the CLI's grid, and the served frames."""
+decoders and Pillow-exact resize), the CLI's grid, and the served frames
+(JPEGs equal to PIL's of the strip)."""
 
+import io
 import sys
 import threading
 import urllib.request
@@ -11,6 +13,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from easygaussiansplatting_tpu_torch import sh_demo
 from easygaussiansplatting_tpu_torch.data.image_io import decode_png
@@ -97,8 +100,20 @@ def test_cli_writes_its_grid(tmp_path, capsys):
     np.testing.assert_array_equal(grid[:32], (img * 255).astype(np.uint8))
 
 
-def test_served_frames_are_pngs_of_the_strip(fits):
+def test_served_frames_are_pngs_of_the_strip(fits, monkeypatch):
+    """/frame answers a JPEG of the strip, as the JAX demo does: the bytes of
+    PIL's save at quality 90 of its (frame * 255) cast to uint8, where the
+    strip is the one the server rendered (recorded) and equal, cast, to a
+    fresh render of the same angle."""
     img, (coeffs, _), _ = fits
+    served = []
+    make = sh_demo.make_sphere_renderer
+
+    def recording(*args, **kw):
+        render = make(*args, **kw)
+        return lambda angle: served.append(render(angle)) or served[-1]
+
+    monkeypatch.setattr(sh_demo, "make_sphere_renderer", recording)
     started = []
     t = threading.Thread(target=sh_demo.serve_spheres, args=(img, coeffs),
                          kwargs=dict(port=0, device="cpu", on_ready=started.append),
@@ -112,10 +127,16 @@ def test_served_frames_are_pngs_of_the_strip(fits):
     try:
         url = f"http://127.0.0.1:{httpd.server_address[1]}"
         with urllib.request.urlopen(url + "/frame?angle=0.5", timeout=60) as r:
-            assert r.status == 200 and r.headers["Content-Type"] == "image/png"
-            frame, _ = decode_png(r.read())
-        want = sh_demo.make_sphere_renderer(img, coeffs, device="cpu")(0.5).numpy()
+            assert r.status == 200 and r.headers["Content-Type"] == "image/jpeg"
+            body = r.read()
+        want = make(img, coeffs, device="cpu")(0.5).numpy()
+        assert len(served) == 1
+        frame = (served[0].numpy() * 255).astype(np.uint8)
         np.testing.assert_array_equal(frame, (want * 255).astype(np.uint8))
+        buf = io.BytesIO()
+        Image.fromarray(frame).save(buf, format="JPEG", quality=90)
+        assert body == buf.getvalue()
+        assert Image.open(io.BytesIO(body)).size == (want.shape[1], want.shape[0])
         with urllib.request.urlopen(url + "/", timeout=60) as r:
             assert b"SH demo" in r.read()
     finally:

@@ -181,10 +181,17 @@ def test_gaussian_viewer_cli_serves(tmp_path):
         line = proc.stdout.readline()
         assert line.startswith("viewer: http://127.0.0.1:"), line + proc.stderr.read()
         url = line.split()[1].rstrip("/")
-        with urllib.request.urlopen(url + "/render?az=0.5&w=64&h=48", timeout=60) as r:
+        with urllib.request.urlopen(url + "/render?az=0.5&w=64&h=48&fmt=png", timeout=60) as r:
             assert r.status == 200 and r.headers["Content-Type"] == "image/png"
             pixels, _ = decode_png(r.read())
         assert pixels.shape == (48, 64, 3) and pixels.max() > 0
+        # no fmt: a JPEG of the same view, as the JAX viewer answers (its
+        # bytes against PIL's are tests/test_torch_viewer_server.py's)
+        with urllib.request.urlopen(url + "/render?az=0.5&w=64&h=48", timeout=60) as r:
+            assert r.status == 200 and r.headers["Content-Type"] == "image/jpeg"
+            decoded = np.asarray(Image.open(io.BytesIO(r.read())).convert("RGB"))
+        assert decoded.shape == (48, 64, 3)
+        assert np.abs(decoded.astype(np.int32) - pixels.astype(np.int32)).mean() < 4
     finally:
         proc.kill()
         proc.wait(timeout=30)

@@ -2,8 +2,10 @@
 on tests/test_viewer_server.py's fixture (every render mode, overlay toggle
 and cloud mode; info(); the device cache's keys and bound), the port's
 overlay lines against PIL's, the HTTP endpoints through the real stack
-(PNG bodies bit-equal to the frames), and the live training monitor
-through the train CLI's --monitor-port. The JAX side renders on its tiled
+(JPEG bodies, the default, byte-equal to the JAX module's PIL encode of the
+frame; PNG bodies under fmt=png bit-equal to the frames), and the live
+training monitor through the train CLI's --monitor-port (its /preview.jpg
+equal to PIL's JPEG of its frame at quality 88). The JAX side renders on its tiled
 backend, the port on its plain path, both on the CPU."""
 
 import io
@@ -21,11 +23,12 @@ from PIL import Image
 from easygaussiansplatting_tpu.data import example_gaussians as jax_example_gaussians
 from easygaussiansplatting_tpu.data.synthetic import look_at_camera as jax_look_at_camera
 from easygaussiansplatting_tpu.viewer.server import SceneRenderer as JaxSceneRenderer
+from easygaussiansplatting_tpu.viewer.server import _encode
 from easygaussiansplatting_tpu_torch.data import example_gaussians
 from easygaussiansplatting_tpu_torch.data.image_io import decode_png
 from easygaussiansplatting_tpu_torch.data.synthetic import look_at_camera
 from easygaussiansplatting_tpu_torch.train import __main__ as train_cli
-from easygaussiansplatting_tpu_torch.viewer import server
+from easygaussiansplatting_tpu_torch.viewer import monitor, server
 from easygaussiansplatting_tpu_torch.viewer.server import SceneRenderer, draw_line, serve
 
 torch.set_num_threads(2)
@@ -234,15 +237,13 @@ def test_draw_line_far_endpoints_and_points(width):
 def test_http_index_and_info(server_url, renderers):
     status, ctype, body = _get(server_url + "/")
     assert status == 200 and "text/html" in ctype
-    assert b"render mode" in body and b"fmt=png" in body
+    assert b"render mode" in body and b"/render?" in body and b"fmt=" not in body  # JPEG
     status, ctype, body = _get(server_url + "/info")
     assert status == 200 and ctype == "application/json"
     assert json.loads(body) == json.loads(json.dumps(renderers[0].info()))
 
 
-@pytest.mark.parametrize("query,kw,size", [
-    ("az=0.7&el=0.3&w=96&h=64&fmt=png", dict(azimuth=0.7, elevation=0.3, width=96, height=64),
-     (96, 64)),
+QUERIES = [
     ("az=0.7&el=0.3&w=96&h=64", dict(azimuth=0.7, elevation=0.3, width=96, height=64), (96, 64)),
     ("az=0.7&el=0.3&w=256&h=192&lores=1&mode=inverse&markers=1&axes=1",
      dict(azimuth=0.7, elevation=0.3, width=256, height=192, lores=True, mode="inverse",
@@ -250,9 +251,14 @@ def test_http_index_and_info(server_url, renderers):
     ("az=1.1&el=0.2&w=80&h=60&cloud=1&cloud_mode=rainbow&grid=1&r=3.0&cx=0.1&cy=0&cz=0.2",
      dict(azimuth=1.1, elevation=0.2, width=80, height=60, cloud=True, cloud_mode="rainbow",
           grid=True, radius=3.0, center=[0.1, 0.0, 0.2]), (80, 60)),
-])
-def test_http_render_png_bit_equal_to_the_frame(server_url, renderers, query, kw, size):
-    status, ctype, body = _get(server_url + "/render?" + query)
+]
+
+
+@pytest.mark.parametrize("fmt", ["&fmt=png", "&fmt=gif"])
+@pytest.mark.parametrize("query,kw,size", QUERIES)
+def test_http_render_png_bit_equal_to_the_frame(server_url, renderers, query, kw, size, fmt):
+    """A fmt other than jpeg answers PNG, as the JAX module's _encode does."""
+    status, ctype, body = _get(server_url + "/render?" + query + fmt)
     assert status == 200 and ctype == "image/png"
     want = renderers[0].render(**kw)
     im = Image.open(io.BytesIO(body))
@@ -261,6 +267,27 @@ def test_http_render_png_bit_equal_to_the_frame(server_url, renderers, query, kw
     pixels, mode = decode_png(body)
     assert mode == "RGB"
     np.testing.assert_array_equal(pixels, want)
+
+
+@pytest.mark.parametrize("fmt", ["", "&fmt=jpeg"])
+@pytest.mark.parametrize("query,kw,size", QUERIES)
+def test_http_render_jpeg_equal_to_the_jax_encode(server_url, renderers, query, kw, size, fmt,
+                                                  monkeypatch):
+    """No fmt, or fmt=jpeg: image/jpeg whose bytes are the JAX module's
+    _encode (PIL at quality 90) of the frame the server rendered, which
+    equals the frame render() gives."""
+    port = renderers[0]
+    served = []
+    render_device = port.render_device
+    monkeypatch.setattr(port, "render_device",
+                        lambda **view: served.append(render_device(**view)) or served[-1])
+    status, ctype, body = _get(server_url + "/render?" + query + fmt)
+    assert status == 200 and ctype == "image/jpeg"
+    assert len(served) == 1
+    frame = served[0].numpy()
+    assert frame.shape == (size[1], size[0], 3)
+    np.testing.assert_array_equal(frame, port.render(**kw))
+    assert body == _encode(frame, "jpeg", 90)[0]
 
 
 @pytest.mark.parametrize("query,code", [("/render?mode=wire", 400),
@@ -280,30 +307,36 @@ def _free_port():
 def test_training_monitor_live_through_the_train_cli(tmp_path, monkeypatch):
     """The train CLI with --monitor-port for 2 epochs: after each epoch the
     monitor, asked over HTTP while training runs, serves that epoch's
-    history and a PNG of camera 0; its page and /preview.jpg too."""
-    seen = []
+    history and a frame of camera 0 as a JPEG at /preview.jpg: PIL's bytes at
+    quality 88 of the frame epoch_cb rendered (recorded); the page asks for
+    the JPEG."""
+    seen, frames = [], []
+    frame_u8 = monitor.frame_u8
+    monkeypatch.setattr(monitor, "frame_u8",
+                        lambda img: frames.append(frame_u8(img)) or frames[-1])
 
     class Probe(train_cli.TrainingMonitor):
         def epoch_cb(self, epoch, pool, **kw):
             super().epoch_cb(epoch, pool, **kw)
             url = f"http://127.0.0.1:{self.port}"
-            seen.append((json.loads(_get(url + "/history")[2]), _get(url + "/preview.png"),
-                         _get(url + "/preview.jpg"), _get(url + "/")[2]))
+            seen.append((json.loads(_get(url + "/history")[2]), _get(url + "/preview.jpg"),
+                         _get(url + "/")[2]))
 
     monkeypatch.setattr(train_cli, "TrainingMonitor", Probe)
     port = _free_port()
     history = train_cli.main(["--synthetic", "--epochs", "2", "--device", "cpu", "--out",
                               str(tmp_path), "--monitor-port", str(port), "--eval-every", "1"])
-    assert len(seen) == 2
-    for e, (h, png, jpg, page) in enumerate(seen, start=1):
+    assert len(seen) == 2 and len(frames) == 2
+    for e, ((h, jpg, page), frame) in enumerate(zip(seen, frames), start=1):
         assert h["epoch"] == e and len(h["loss"]) == e and len(h["psnr"]) == e
         assert h["loss"] == pytest.approx(history["loss"][:e])
-        status, ctype, body = png
-        assert status == 200 and ctype == "image/png"
-        pixels, _ = decode_png(body)
-        assert pixels.shape == (96, 128, 3)
-        assert jpg == png
-        assert b"training monitor" in page and b"/preview.png" in page
+        assert frame.shape == (96, 128, 3) and frame.dtype == torch.uint8
+        status, ctype, body = jpg
+        assert status == 200 and ctype == "image/jpeg"
+        buf = io.BytesIO()
+        Image.fromarray(frame.numpy()).save(buf, format="JPEG", quality=88)
+        assert body == buf.getvalue()
+        assert b"training monitor" in page and b"/preview.jpg" in page
     with pytest.raises(urllib.error.URLError):  # closed with the run
         _get(f"http://127.0.0.1:{port}/history")
 
@@ -316,7 +349,7 @@ def test_monitor_before_the_first_epoch(tmp_path):
     mon = TrainingMonitor(cam, TrainConfig(), port=0, log_fn=lambda *_: None)
     try:
         with pytest.raises(urllib.error.HTTPError) as ei:
-            _get(f"http://127.0.0.1:{mon.port}/preview.png")
+            _get(f"http://127.0.0.1:{mon.port}/preview.jpg")
         assert ei.value.code == 404
         h = json.loads(_get(f"http://127.0.0.1:{mon.port}/history")[2])
         assert h == {"epoch": 0, "loss": [], "psnr": [], "n_alive": []}
