@@ -1,0 +1,11 @@
+"""train.device_idle_share: the share of the profiled steps' wall time in
+which no operation ran on the device."""
+
+LAYER = "device"
+MOVES = "train_views_per_s"
+
+
+def read(run):
+    if run.profile is None or "profile" not in run.data:
+        return None
+    return 100.0 * (1.0 - run.profile["busy_s"] / run.profile["window_s"])
