@@ -4,7 +4,7 @@ Port of the repository's root gaussian_viewer.py:
 
 * ``--serve`` starts the interactive web viewer (viewer/server.py: mouse
   orbit, pan and zoom, render modes, dataset-camera and point-cloud
-  overlays), its frames rendered on the card and sent as PNG;
+  overlays), its frames rendered on the card and sent as JPEG;
 * without ``--serve``, renders a headless orbit to an animated GIF (the
   fixed palette of utils/gif.py) and, with ``--save-frames``, PNGs.
 
@@ -15,6 +15,16 @@ Port of the repository's root gaussian_viewer.py:
 ``--path`` overlays a COLMAP scene's cameras: as image-textured frusta
 under ``--serve`` (the photos read at 1/8 size by the port's loader), as
 small markers in a turntable.
+
+``--max-patches`` sets the server's binning budget (default 2^20 patches);
+a view that needs more drops the patches of its deepest splats.
+``--trace PATH`` traces the server (utils/trace.py): on shutdown it writes
+each request's spans as Chrome trace events to PATH (Perfetto opens them),
+with binning's counters on the request's record, and prints one line: the
+requests served, how many of them dropped splats (patches or tile rows
+beyond the budget), and the most tile rows and patches any of them needed.
+
+    python -m easygaussiansplatting_tpu_torch.gaussian_viewer --serve --trace trace.json
 """
 
 import argparse
@@ -24,6 +34,7 @@ import numpy as np
 from easygaussiansplatting_tpu_torch.data import example_gaussians
 from easygaussiansplatting_tpu_torch.data.dataset import load_colmap_dataset, load_image
 from easygaussiansplatting_tpu_torch.data.gau_io import load_gs, recarray_to_arrays
+from easygaussiansplatting_tpu_torch.utils import trace
 from easygaussiansplatting_tpu_torch.utils.device import resolve_device
 from easygaussiansplatting_tpu_torch.viewer.headless import (
     camera_markers,
@@ -58,6 +69,20 @@ def dataset_overlays(path, skip, device):
     return ds.cameras, images, cloud
 
 
+def trace_summary(tracer, path):
+    """The one line ``--trace`` prints at exit. Binning counts a view's
+    patches on the tile rows it kept, so where rows were dropped the
+    patches a view needs are more than it counted."""
+    reqs = [r.counters for r in tracer.named("viewer.request")]
+    renders = [c for c in reqs if "binning.patches" in c]
+    dropped = sum(c["binning.dropped"] > 0 or c["binning.rows_dropped"] > 0 for c in renders)
+    rows, patches, slots = (max((c[k] for c in renders), default=0)
+                            for k in ("binning.rows", "binning.patches", "binning.slots"))
+    return (f"trace: {len(reqs)} requests served, {dropped} of {len(renders)} renders dropped "
+            f"splats (the most needed {rows:,} tile rows and {patches:,} patches, of "
+            f"{slots:,} slots each); wrote {path}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -78,6 +103,11 @@ def main(argv=None):
                     help="render mode: ball = hard opaque discs, inverse = negated colours")
     ap.add_argument("--out", default="orbit.gif")
     ap.add_argument("--save-frames", help="also write PNG frames with this prefix")
+    ap.add_argument("--max-patches", type=int, default=2**20,
+                    help="with --serve: binning's patch budget a frame")
+    ap.add_argument("--trace", metavar="PATH",
+                    help="with --serve: write the requests' spans and counters as Chrome "
+                         "trace events to PATH at exit")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
@@ -93,8 +123,16 @@ def main(argv=None):
             dataset_cameras, dataset_images, cloud = dataset_overlays(args.path, args.skip, dev)
         renderer = SceneRenderer(a, dataset_cameras=dataset_cameras,
                                  dataset_images=dataset_images, cloud=cloud,
-                                 backend=args.backend, marker_skip=args.skip, device=dev)
-        serve(renderer, port=args.port, host=args.host)
+                                 backend=args.backend, max_patches=args.max_patches,
+                                 marker_skip=args.skip, device=dev)
+        tracer = trace.enable() if args.trace else None
+        try:
+            serve(renderer, port=args.port, host=args.host)
+        finally:
+            if tracer is not None:
+                trace.disable()
+                tracer.write_chrome(args.trace)
+                print(trace_summary(tracer, args.trace), flush=True)
         return
 
     if args.path:

@@ -25,6 +25,7 @@ import torch
 
 from easygaussiansplatting_tpu_torch.ops.kernels import _build
 from easygaussiansplatting_tpu_torch.ops.kernels.scan import multi_cumsum
+from easygaussiansplatting_tpu_torch.utils import trace
 from easygaussiansplatting_tpu_torch.utils.jpeg import (
     EOI,
     check_frame,
@@ -139,14 +140,18 @@ def encode_jpeg(rgb, quality=90):
     scan's length."""
     check_frame(rgb)
     if rgb.device.type == "cpu":
-        return encode_jpeg_plain(rgb, quality)
+        with trace.span("encode.launch"):
+            return encode_jpeg_plain(rgb, quality)
     if rgb.device.type != "cuda":
         raise ValueError(f"unsupported device {rgb.device}")
-    rgb = rgb.contiguous()
-    out, out_len = launch(rgb, quality)
+    with trace.span("encode.launch"):
+        rgb = rgb.contiguous()
+        out, out_len = launch(rgb, quality)
     encode_jpeg.launches += 1
     h, w, _ = rgb.shape
-    return headers(w, h, quality) + out[:int(out_len.item())].cpu().numpy().tobytes() + EOI
+    with trace.span("encode.wait"):  # the host blocks on the device here
+        stuffed = out[:int(out_len.item())].cpu().numpy().tobytes()
+    return headers(w, h, quality) + stuffed + EOI
 
 
 encode_jpeg.launches = 0

@@ -23,6 +23,10 @@ per-gaussian patch counts the backward's gradient reduce reads;
 ``need_grads=False`` renders under ``torch.no_grad()``. Binning's inputs
 are detached, as the JAX ones are ``stop_gradient``: its integer outputs
 take no gradient.
+
+With tracing on (utils/trace.py) the stages are the spans
+``render.preprocess``, ``render.binning`` and ``render.blend``, and
+binning's patch and row counts the request's ``binning.*`` counters.
 """
 
 import torch
@@ -36,6 +40,7 @@ from easygaussiansplatting_tpu_torch.ops.kernels.preprocess import (
     table_views,
 )
 from easygaussiansplatting_tpu_torch.ops.kernels.rasterize import RasterizeFunction
+from easygaussiansplatting_tpu_torch.utils import trace
 from easygaussiansplatting_tpu_torch.utils.device import resolve_device
 
 BACKENDS = ("auto", "cuda", "tiled", "dense")
@@ -79,15 +84,22 @@ def raster_from_aux(us, cinv2ds, alphas, colors, depths, areas, valid, *,
         if use_kernels:
             raise ValueError("backend 'cuda' needs the K1 table from fused_preprocess")
         table = pack_table(us, cinv2ds, alphas, colors, depths, areas)
-    binning = bin_gaussians(
-        us.detach(), depths.detach(), areas.detach(), valid, width=width, height=height,
-        max_patches=max_patches, max_rows=max_rows,
-        # skip-ellipse row culling: candidate set stays pixel-exact vs the
-        # AABB while patches drop
-        cinv2ds=cinv2ds.detach(), alphas=alphas.detach(), gsid_counts=need_grads,
-        use_kernels=use_kernels,
-    )
-    with torch.set_grad_enabled(need_grads and torch.is_grad_enabled()):
+    with trace.span("render.binning"):
+        binning = bin_gaussians(
+            us.detach(), depths.detach(), areas.detach(), valid, width=width, height=height,
+            max_patches=max_patches, max_rows=max_rows,
+            # skip-ellipse row culling: candidate set stays pixel-exact vs the
+            # AABB while patches drop
+            cinv2ds=cinv2ds.detach(), alphas=alphas.detach(), gsid_counts=need_grads,
+            use_kernels=use_kernels,
+        )
+    # the request's counters (tracing on): patches needed and dropped, and
+    # the slots that binning's scatters and scans run over
+    trace.count({"binning.patches": binning["total"], "binning.dropped": binning["n_dropped"],
+                 "binning.rows": binning["total_rows"],
+                 "binning.rows_dropped": binning["rows_dropped"], "binning.slots": max_patches})
+    with torch.set_grad_enabled(need_grads and torch.is_grad_enabled()), \
+            trace.span("render.blend"):
         image, final_tau, contrib = RasterizeFunction.apply(
             table, binning["patch_gsid"], binning["tile_start"], binning["tile_cnt"],
             binning.get("gsid_counts"), width, height, use_kernels)
@@ -137,10 +149,11 @@ def render(pws, shs, alphas, scales, rots, cam, alive=None, us_offset=None, sh_d
                 width=cam.width, height=cam.height, backend=backend, need_grads=need_grads)
         return image, {**aux, **raux}
     with torch.set_grad_enabled(need_grads and torch.is_grad_enabled()):
-        table = PreprocessFunction.apply(pws, shs, alphas, scales, rots, cam, sh_degree,
-                                         backend == "cuda")
-        table, _ = offset_table(table, us_offset)
-        aux = table_views(table, alphas, alive)
+        with trace.span("render.preprocess"):
+            table = PreprocessFunction.apply(pws, shs, alphas, scales, rots, cam, sh_degree,
+                                             backend == "cuda")
+            table, _ = offset_table(table, us_offset)
+            aux = table_views(table, alphas, alive)
         image, raux = raster_from_aux(
             *(aux[k] for k in ("us", "cinv2ds", "alphas", "colors", "depths", "areas", "valid")),
             width=cam.width, height=cam.height, backend=backend, max_patches=max_patches,

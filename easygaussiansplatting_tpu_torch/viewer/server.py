@@ -22,6 +22,11 @@ Where the port differs from the JAX module:
 * No jit: each frame calls ``ops/rasterize.render`` (on the card K1, K3's
   three calls and K4 once; a JPEG adds K11 and K3's two calls), on
   parameters that stay on the device.
+* With tracing on (``utils/trace.py``, off by default) each connection is a
+  ``viewer.request`` span, from before its request line is read to its
+  last byte, holding ``render`` (with ``render.wait`` for the lock,
+  ``render.preprocess``, ``render.binning``, ``render.blend``) and
+  ``encode.launch`` / ``encode.wait``, and binning's counters.
 """
 
 import json
@@ -38,6 +43,7 @@ from easygaussiansplatting_tpu_torch.data.gau_io import SH_C0
 from easygaussiansplatting_tpu_torch.data.synthetic import look_at_camera
 from easygaussiansplatting_tpu_torch.ops.kernels.jpeg import encode_jpeg
 from easygaussiansplatting_tpu_torch.ops.rasterize import render, resolve_backend
+from easygaussiansplatting_tpu_torch.utils import trace
 from easygaussiansplatting_tpu_torch.utils.device import resolve_device
 from easygaussiansplatting_tpu_torch.utils.image import encode_png, frame_u8, rainbow_sh
 from easygaussiansplatting_tpu_torch.viewer.headless import camera_frusta
@@ -183,17 +189,24 @@ class SceneRenderer:
         renderer's device, for an encode there. The axis and grid lines are
         drawn on the host (:func:`draw_line`) and the drawn frame uploaded
         again."""
-        cam = self.camera(azimuth=azimuth, elevation=elevation, radius=radius, center=center,
-                          width=width, height=height, fov_f=fov_f, lores=lores)
-        with self.lock:  # one card: uploads and renders are serialised
-            dev = self._device_params(markers=markers, cloud=cloud, cloud_mode=cloud_mode,
-                                      mode=mode)
-            img, _ = render(*dev, cam, backend=self.backend, max_patches=self.max_patches,
-                            sh_degree=self.sh_degree, need_grads=False, device=self.device)
-            out = frame_u8(img)
-        if axes or grid:
-            drawn = self._draw_overlays(out.cpu().numpy(), cam, axes=axes, grid=grid)
-            out = torch.from_numpy(drawn).to(self.device)
+        with trace.span("render"):
+            cam = self.camera(azimuth=azimuth, elevation=elevation, radius=radius,
+                              center=center, width=width, height=height, fov_f=fov_f,
+                              lores=lores)
+            with trace.span("render.wait"):
+                self.lock.acquire()
+            try:  # one card: uploads and renders are serialised
+                dev = self._device_params(markers=markers, cloud=cloud, cloud_mode=cloud_mode,
+                                          mode=mode)
+                img, _ = render(*dev, cam, backend=self.backend, max_patches=self.max_patches,
+                                sh_degree=self.sh_degree, need_grads=False, device=self.device)
+                with trace.span("render.blend"):
+                    out = frame_u8(img)
+            finally:
+                self.lock.release()
+            if axes or grid:
+                drawn = self._draw_overlays(out.cpu().numpy(), cam, axes=axes, grid=grid)
+                out = torch.from_numpy(drawn).to(self.device)
         return out
 
     def _device_params(self, *, markers, cloud, cloud_mode, mode):
@@ -316,7 +329,13 @@ def make_handler(renderer):
         def log_message(self, *args):  # quiet
             pass
 
+        def handle(self):
+            # from before the request line is read to the flushed last byte
+            with trace.request("viewer.request"):
+                super().handle()
+
         def _send(self, code, body, ctype):
+            trace.note(status=code, bytes=len(body))
             self.send_response(code)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
@@ -326,6 +345,7 @@ def make_handler(renderer):
         def do_GET(self):
             url = urlparse(self.path)
             q = {k: v[-1] for k, v in parse_qs(url.query).items()}
+            trace.note(path=url.path)
             try:
                 if url.path in ("/", "/index.html"):
                     self._send(200, index_html.encode(), "text/html")
@@ -353,6 +373,7 @@ def make_handler(renderer):
                         cloud_mode=q.get("cloud_mode", "rgb"),
                         lores=q.get("lores", "0") == "1",
                     )
+                    trace.note(lores=view["lores"], size=f"{view['width']}x{view['height']}")
                     if q.get("fmt", "jpeg") == "jpeg":
                         body = encode_jpeg(renderer.render_device(**view), quality=90)
                         self._send(200, body, "image/jpeg")
