@@ -17,7 +17,10 @@ gaussians, SH degree 3, 979x546, max_patches 557,056, max_rows 229,376):
   on rows far longer than binning's (2^21 and 2^24 positions); K4 and
   K5 also print the work this data needs (pairs, warp-iterations, K5's
   shuffles), their compiled inner loops (cuobjdump) and their registers
-  and resident blocks an SM;
+  and resident blocks an SM; K12 (binning) on the truck_view cell's scene
+  (1,657,258 gaussians) at 160x120 and 640x480, its lists equal to the slot
+  path's, its device kernels (five, the depth sort's and K3's two), and
+  its time beside the slot path's and its bytes bound;
 * the training path: ground truth of 4 views rendered by the port, a pool
   started from the scene with perturbed opacities and colours, and 23 steps
   of ``make_train_step`` (3 warm, 20 timed) cycling the views; then one step
@@ -77,7 +80,7 @@ gaussians, SH degree 3, 979x546, max_patches 557,056, max_rows 229,376):
   cameras and a point cloud, every render mode, overlay toggle and cloud
   mode, axes and grid and the drag preview, each frame within 1 level of
   the all-plain path's (at most 0.1% of its pixels a level off) and
-  launching K1 once, K3's 3 calls and K4 once; the HTTP server on an
+  launching K1, K12 and K4 once and K3 twice; the HTTP server on an
   ephemeral port (JPEG bodies, the default, equal to the plain encode of
   render()'s frame and launching K11 once and K3 twice more; PNG bodies
   under fmt=png decoded bit-equal to the frames; a 979x546 request's time
@@ -161,14 +164,16 @@ from easygaussiansplatting_tpu_torch.data.make_io_fixtures import (
     RATES,
     planted_faults,
 )
-from easygaussiansplatting_tpu_torch.data.synthetic import make_synthetic_scene
+from easygaussiansplatting_tpu_torch.data.synthetic import look_at_camera, make_synthetic_scene
 from easygaussiansplatting_tpu_torch.eval import evaluate_views
 from easygaussiansplatting_tpu_torch.models.camera import Camera
 from easygaussiansplatting_tpu_torch.models.convert import gaussians_from_numpy
 from easygaussiansplatting_tpu_torch.models.gaussians import GROUPS, GaussianPool, pool_from_arrays
+from easygaussiansplatting_tpu_torch.ops import binning as binning_mod
 from easygaussiansplatting_tpu_torch.ops import stages
 from easygaussiansplatting_tpu_torch.ops.binning import TILE, bin_gaussians, num_tiles
 from easygaussiansplatting_tpu_torch.ops.blend import ALPHA_CLAMP, ALPHA_SKIP, chunk_alpha
+from easygaussiansplatting_tpu_torch.ops.kernels import binning as kernel_binning
 from easygaussiansplatting_tpu_torch.ops.kernels import (
     _build,
     jpeg,
@@ -342,8 +347,13 @@ WRAPPERS = {"K1 preprocess_fwd": preprocess.preprocess_fwd,
             "K9b variant_b": micro_bench.variant_b,
             "K9v variant_vmem_resident": micro_bench.variant_vmem_resident,
             "K10 stream_sums": exp_dma_stream.stream_sums,
-            "K11 encode_jpeg": jpeg.encode_jpeg}
-STEP_KERNELS = tuple(k for k in WRAPPERS if k.split()[0] in ("K1", "K2", "K3", "K4", "K5", "K6"))
+            "K11 encode_jpeg": jpeg.encode_jpeg,
+            "K12 bin_lists": kernel_binning.bin_lists}
+STEP_KERNELS = tuple(k for k in WRAPPERS
+                     if k.split()[0] in ("K1", "K2", "K3", "K4", "K5", "K6", "K12"))
+# K12 bins a render or step with two K3 calls (its count rows and its
+# [n_tiles, chunks] count matrix)
+K3_PER_BIN = 2
 ROUTE_KERNELS = ("K7 sort_pairs", "K8 counting_sort")
 K9_KERNELS = ("K9a variant_a", "K9b variant_b", "K9v variant_vmem_resident")
 # the sort routes: (label, flags, patch budget (None: the bench's), kernel)
@@ -539,7 +549,8 @@ def bound(nbytes, fp32_ops, exps, clock_mhz, n_sm, int_ops=0):
 
 def phase_k3(device, flush, clock_mhz, n_sm):
     gen = torch.Generator(device="cpu").manual_seed(SEED)
-    # the three row sets one render scans at the bench budgets, sparse marks
+    # the three row sets the slot path of binning scans a render at the
+    # bench budgets (K12's two calls are timed in phase_k12), sparse marks
     # like binning's; one row set a position longer, whose row 1 starts 4
     # bytes past a 16-byte boundary (the kernel's striped 4-byte path); and
     # one float32 set
@@ -580,7 +591,7 @@ def phase_k3(device, flush, clock_mhz, n_sm):
                  f"{float((want.double() - ref).abs().max()):.3e}; two calls bit-equal: {equal}")
     require(n_bad == 0, "K3 f32 differs beyond tolerance")
     require(equal, "K3 f32: two calls differ")
-    # one render's three calls: the times add up. The second yardstick:
+    # the slot path's three calls a render: the times add up. The second yardstick:
     # torch.cumsum of each row as a 1-D tensor (CUB's device scan), R calls
     # a set; torch.cumsum(x, dim=1) hands a whole row to one block.
     timing, rows_ms = {}, 0.0
@@ -722,6 +733,118 @@ def phase_k4(device, flush, clock_mhz, n_sm):
             **k4_bound(nbytes, work, clock_mhz, n_sm)}, lines
 
 
+# K12 on the truck_view cell's scene (benchmark/configs/truck_view.json), from
+# the viewer's orbit camera at azimuth 0, elevation 0.3
+K12_CONFIG = ROOT / "benchmark" / "configs" / "truck_view.json"
+K12_VIEWS = ((160, 120), (640, 480))
+# K12's device kernels, once each a bin_lists call; beside them the depth
+# sort's (torch.sort) and K3's, once in each of its two calls
+K12_NAMES = ("bin_prep_kernel", "bin_count_kernel", "bin_emit_kernel", "bin_hist_kernel",
+             "bin_place_kernel")
+
+
+@contextlib.contextmanager
+def slot_route():
+    """bin_gaussians on the slot path for the block, on the kernel route."""
+    takes = binning_mod.takes_kernel
+    binning_mod.takes_kernel = lambda *args: False
+    try:
+        yield
+    finally:
+        binning_mod.takes_kernel = takes
+
+
+def k12_bound(n, n_tiles, max_patches, clock_mhz, n_sm):
+    """bin_lists' bound: its inputs read once (us, areas, depths, valid,
+    alphas, conic: 37 bytes a gaussian) and its outputs written once (the
+    two lists of max_patches slots, padding included, and the two tile
+    ranges)."""
+    return bound(37 * n + 8 * max_patches + 8 * n_tiles, 0, 0, clock_mhz, n_sm)
+
+
+def k12_kernels(fn):
+    """The device kernels of one bin_lists call (profiled, up to
+    KERNEL_COUNT_TRIES windows): each of K12's five once and K3's twice,
+    the depth sort's beside them. Returns the phase line's text."""
+    seen = []
+    for _ in range(KERNEL_COUNT_TRIES):
+        _, kernels = device_kernels(fn)
+        counts = {}
+        for name in K12_NAMES + K3_NAMES:
+            m = re.search(rf"\b{name} x(\d+)", kernels)
+            counts[name] = int(m.group(1)) if m else 0
+        if counts == {**{k: 1 for k in K12_NAMES}, **{k: K3_PER_BIN for k in K3_NAMES}}:
+            return kernels
+        seen.append(kernels)
+    require(False, f"K12: one call's kernels are not K12's five once and K3 {K3_PER_BIN} "
+            f"times in {KERNEL_COUNT_TRIES} profiles: " + "; ".join(seen))
+
+
+def phase_k12(device, flush, clock_mhz, n_sm):
+    """K12 on the truck_view cell's 1,657,258-gaussian scene (drawn on the
+    card as the benchmark draws it) at its 160x120 preview and 640x480
+    frame: every output equal to the slot path's on the same inputs, the
+    device kernels of one call, and by CUDA events the whole of binning on
+    each route (K12's: its five kernels, the depth sort and two K3 calls),
+    and the bound."""
+    from benchmark.scene import view_scene  # the cell's own scene
+
+    cfg = json.loads(K12_CONFIG.read_text())
+    p = view_scene(cfg, device)
+    pws = p["pws"].cpu().numpy()  # SceneRenderer's orbit centre and radius
+    center = pws.mean(0)
+    radius = 2.5 * float(np.percentile(np.linalg.norm(pws - center, axis=1), 90))
+    center = center.astype(np.float64)
+    lines, entry = [], None
+    for w, h in K12_VIEWS:
+        el, az = 0.3, 0.0
+        pos = center + radius * np.array([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                                          np.sin(el)])
+        cam = look_at_camera(pos, center, w, h, cfg["fov_f"] * w)
+        pre = preprocess.fused_preprocess(*(p[k] for k in ("pws", "shs", "alphas", "scales",
+                                                           "rots")), cam, sh_degree=3)
+        kw = dict(width=w, height=h, max_patches=cfg["max_patches"], cinv2ds=pre["cinv2ds"],
+                  alphas=pre["alphas"])
+        args = (pre["us"], pre["depths"], pre["areas"], pre["valid"])
+        got = bin_gaussians(*args, **kw)
+        with slot_route():
+            want = bin_gaussians(*args, **kw)
+        torch.cuda.synchronize()
+        require(got["kernel"] and not want["kernel"], f"K12 {w}x{h}: the routes were not taken")
+        same = all(torch.equal(got[k], want[k]) for k in BIN_KEYS if k in want)
+        require(same, f"K12 {w}x{h}: the lists differ from the slot path's")
+
+        def k12(args=args, kw=kw):
+            return bin_gaussians(*args, **kw)
+
+        def slot(args=args, kw=kw):
+            with slot_route():
+                return bin_gaussians(*args, **kw)
+
+        kernels = k12_kernels(k12)
+        timing = {"ms": event_ms(k12, clock_mhz, flush=flush),
+                  "plain_ms": event_ms(slot, clock_mhz, iters=5, warmup=1, flush=flush),
+                  "library_ms": None, "call_ms": call_ms(k12)}
+        n_tiles = num_tiles(w, h)[0] * num_tiles(w, h)[1]
+        b = k12_bound(len(p["pws"]), n_tiles, cfg["max_patches"], clock_mhz, n_sm)
+        plan = kernel_binning.kernel_plan(n_tiles, cfg["max_patches"])
+        lines.append(
+            f"K12 {w}x{h} on truck_view ({len(p['pws'])} gaussians, {int(got['total'])} "
+            f"patches, {int(got['total_rows'])} rows, {cfg['max_patches']} slots, plan {plan}): "
+            f"every output equal to the slot path's; device kernels {kernels}; binning on the "
+            f"K12 route (its five kernels, the depth sort, K3 twice) {timing['ms']:.4f} ms by "
+            f"CUDA events ({timing['call_ms']:.4f} ms a call with the host's launch work), on "
+            f"the slot path {timing['plain_ms']:.4f} ms; bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']}")
+        entry = {"name": "K12 bin_lists", "route": "cuda",
+                 "source": "easygaussiansplatting_tpu_torch/csrc/binning.cu",
+                 "replaces": "none: the slot path of ops/binning.py (XLA ops in the JAX package)",
+                 "max_abs_err": 0.0, **timing, **b}
+        del pre, got, want
+    del p
+    return entry, lines
+
+
 def phase_slice(device):
     """Serve N_VIEWS render requests through the port's entry point."""
     params, cams = scene_params(device, sh_random=False)
@@ -734,7 +857,8 @@ def phase_slice(device):
     torch.cuda.synchronize()
     launches = {"K1 preprocess_fwd": preprocess.preprocess_fwd.launches,
                 "K3 multi_cumsum": scan.multi_cumsum.launches,
-                "K4 rasterize_fwd": rasterize.rasterize_fwd.launches}
+                "K4 rasterize_fwd": rasterize.rasterize_fwd.launches,
+                "K12 bin_lists": kernel_binning.bin_lists.launches}
     lines = [f"render path launches over {len(cams)} views: {launches}"]
     require(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
     n_pix = WIDTH * HEIGHT
@@ -2122,7 +2246,7 @@ def bench_launches_expected(state, n_cams):
     """Each kernel's launches in one bench_scene run that trained: K2, K5
     and K6 once a step; K1 and K4 once a step and once a render (the ground
     truth, the eval views after each epoch, the training loop's own eval at
-    its last epoch); K3 three times each of those."""
+    its last epoch); K12 once and K3 twice each of those."""
     hist = state["history"]
     return path_launches(len(hist["loss"]) * n_cams,
                          n_cams + 4 * len(state["curve"]) + len(hist["psnr"]))
@@ -2131,11 +2255,12 @@ def bench_launches_expected(state, n_cams):
 def path_launches(steps, renders):
     """K1-K6's launches on a path of ``steps`` cameras trained and
     ``renders`` forward renders (a banded step counts as a step, a band of
-    a render as a render): K2, K5 and K6 once a trained camera; K1 and K4
-    once each; K3 three times each."""
+    a render as a render): K2, K5 and K6 once a trained camera; K1, K4 and
+    K12 once each; K3 twice each."""
     one = steps + renders
-    return {"K1 preprocess_fwd": one, "K2 preprocess_bwd": steps, "K3 multi_cumsum": 3 * one,
-            "K4 rasterize_fwd": one, "K5 rasterize_bwd": steps, "K6 segmented_cumsum": steps}
+    return {"K1 preprocess_fwd": one, "K2 preprocess_bwd": steps,
+            "K3 multi_cumsum": K3_PER_BIN * one, "K4 rasterize_fwd": one,
+            "K5 rasterize_bwd": steps, "K6 segmented_cumsum": steps, "K12 bin_lists": one}
 
 
 def run_bench_scene(*argv):
@@ -2300,8 +2425,8 @@ def viewer_scene(device):
 
 def phase_viewer(device, smi):
     """The viewer on the card: SceneRenderer frames of every mode and
-    toggle against the all-plain path, each launching K1 once, K3's 3 calls
-    and K4 once; the HTTP server (JPEG bodies, the default and fmt=jpeg,
+    toggle against the all-plain path, each launching K1, K12 and K4 once and
+    K3 twice; the HTTP server (JPEG bodies, the default and fmt=jpeg,
     equal to the plain encode of the frame and launching K11 and K3's two
     calls more; PNG bodies under fmt=png bit-equal to the frames; a full
     frame's request time with each; 400, 404); viewer_fps; a GIF turntable
@@ -2317,7 +2442,8 @@ def phase_viewer(device, smi):
               for m in MODES for mk in (False, True)]
     frames += [(f"cloud_mode={cm}", dict(cloud=True, cloud_mode=cm)) for cm in CLOUD_MODES]
     frames += [("axes and grid", dict(axes=True, grid=True)), ("lores", dict(lores=True))]
-    per_frame = {"K1 preprocess_fwd": 1, "K3 multi_cumsum": 3, "K4 rasterize_fwd": 1}
+    per_frame = {"K1 preprocess_fwd": 1, "K3 multi_cumsum": K3_PER_BIN, "K4 rasterize_fwd": 1,
+                 "K12 bin_lists": 1}
     shots = {}
     for label, kw in frames:
         reset_launches()
@@ -2328,7 +2454,8 @@ def phase_viewer(device, smi):
         want = plain.render(**view, **kw)
         shots[label] = got
         lines.append(f"viewer frame {label} {got.shape[1]}x{got.shape[0]}: "
-                     f"{frame_check(label, got, want)}; launches K1 1, K3 3, K4 1")
+                     f"{frame_check(label, got, want)}; launches K1 1, K12 1, K3 "
+                     f"{K3_PER_BIN}, K4 1")
     base = shots["mode=normal markers=False"]
     require(not any(np.array_equal(base, shots[k])
                     for k in ("mode=normal markers=True", "cloud_mode=rgb", "axes and grid")),
@@ -2366,7 +2493,7 @@ def phase_viewer(device, smi):
             ms = (time.perf_counter() - t0) * 1e3
             launches = {k: w.launches for k, w in WRAPPERS.items()}
             per_request = (per_frame if is_png else
-                           dict(per_frame, **{"K3 multi_cumsum": 3 + jpeg.SCANS,
+                           dict(per_frame, **{"K3 multi_cumsum": K3_PER_BIN + jpeg.SCANS,
                                               "K11 encode_jpeg": 1}))
             require(launches == {k: per_request.get(k, 0) for k in WRAPPERS},
                     f"/render?{query} launched {launches}")
@@ -2380,7 +2507,7 @@ def phase_viewer(device, smi):
                         f"/render?{query}: the PNG body is not the frame render() gives")
                 lines.append(f"HTTP /render?{query}: 200 image/png, {len(body)} B in {ms:.1f} "
                              f"ms, decoded {pixels.shape[1]}x{pixels.shape[0]} bit-equal to "
-                             f"render(); launches K1 1, K3 3, K4 1")
+                             f"render(); launches K1 1, K12 1, K3 {K3_PER_BIN}, K4 1")
             else:
                 require(status == 200 and ctype == "image/jpeg",
                         f"/render?{query}: {status} {ctype}")
@@ -2390,8 +2517,8 @@ def phase_viewer(device, smi):
                 db = float(psnr(decoded.float() / 255, want.float() / 255))
                 lines.append(f"HTTP /render?{query}: 200 image/jpeg, {len(body)} B in {ms:.1f} "
                              f"ms, bytes equal to the plain encode (PIL's) of render()'s frame, "
-                             f"nvJPEG's decode {db:.2f} dB from it; launches K1 1, K3 "
-                             f"{3 + jpeg.SCANS}, K4 1, K11 1")
+                             f"nvJPEG's decode {db:.2f} dB from it; launches K1 1, K12 1, "
+                             f"K3 {K3_PER_BIN + jpeg.SCANS}, K4 1, K11 1")
         # a full frame over HTTP, JPEG beside PNG, in turns
         for fmt in ("jpeg", "png", "png", "jpeg") * 3:
             t0 = time.perf_counter()
@@ -2429,7 +2556,8 @@ def phase_viewer(device, smi):
                  f"above the {held} B held before it (torch.cuda.max_memory_allocated)")
     n_frames = 2 * (1 + 3 * 10)
     require(launches["K1 preprocess_fwd"] == n_frames and launches["K4 rasterize_fwd"] == n_frames
-            and launches["K3 multi_cumsum"] == 3 * n_frames,
+            and launches["K3 multi_cumsum"] == K3_PER_BIN * n_frames
+            and launches["K12 bin_lists"] == n_frames,
             f"viewer_fps: launches {launches} for {n_frames} frames")
     require(all(np.isfinite(v[2]) and v[2] > 0 for v in fps.values()), f"viewer_fps: {fps}")
 
@@ -3059,7 +3187,7 @@ def main():
 
     flush = make_flush(device)
     kernels = []
-    for phase in (phase_k1, phase_k3, phase_k4):
+    for phase in (phase_k1, phase_k3, phase_k4, phase_k12):
         entry, lines = phase(device, flush, clock_mhz, n_sm)
         entry["launches"] = launches[entry["name"]]
         for line in lines:

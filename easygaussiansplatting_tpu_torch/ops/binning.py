@@ -3,7 +3,25 @@
 Port of easygaussiansplatting_tpu/ops/binning.py (``num_tiles``,
 ``gaussian_rects``, ``_propagate_marks``, ``bin_gaussians`` with ellipse row
 culling, ``dense_tile_lists``). The integer outputs equal the JAX ones
-exactly; what changed is how some of them are computed:
+exactly, on either of two routes.
+
+**K12** (ops/kernels/binning.py, ``csrc/binning.cu``): CUDA tensors on the
+kernel route (``use_kernels=True``) with none of the opt-in sort flags below
+set, at any view size; it computes in float32 and raises on other inputs. Its work follows the gaussians and the patches the view
+covers: one kernel prepares each gaussian (its depth key, ``gaussian_rects``,
+the skip-ellipse radius^2), the stable depth sort stays ``torch.sort``, and
+then per-gaussian row and patch counts, K3 over them, each kept patch
+written once in depth order, and a stable placement by tile through
+per-chunk tile counts. Every render of the ``cuda`` backend takes it: the
+viewer, the headless turntable, the training monitor, ``render.py`` and
+``eval.py``, the train step (with ``gsid_counts``) and the banded and
+sharded steps of ``parallel/``.
+
+**The slot path**: every other call, i.e. CPU tensors, ``use_kernels=False``
+(the plain version, held to JAX on the CPU and K12's yardstick on the card)
+and the opt-in sort routes. It expands into arrays of
+``max_rows`` and ``max_patches`` slots as the JAX package does, with these
+changes:
 
 * the cumulative sums of the row and patch expansion go through the K3
   wrapper (ops/kernels/scan.py), as the JAX binning's go through its Pallas
@@ -23,14 +41,15 @@ exactly; what changed is how some of them are computed:
   the indices are unique.
 
 The JAX package's opt-in sort routes are read from the same flags at the
-same places, on each call: ``EGS_RADIX_SORT=1`` sorts by tile with K8
-(ops/kernels/radix.py) on every backend; ``EGS_LEX_SORT=1`` sorts the
-two-word (tile, slot) key with K7 (ops/kernels/sort.py) where the packed key
-would overflow 32 bits, on the kernel backend (the JAX package: on the TPU);
-``EGS_XLA_GRAD_SORT=0`` inverts ``gsid_counts`` by K7, on the kernel
-backend. With ``use_kernels=False`` the radix route runs K8's plain version
-and the two K7 routes are not taken. Every route's integer outputs equal the
-default route's.
+same places, on each call, and take the slot path: ``EGS_RADIX_SORT=1``
+sorts by tile with K8 (ops/kernels/radix.py) on every backend;
+``EGS_LEX_SORT=1`` sorts the two-word (tile, slot) key with K7
+(ops/kernels/sort.py) where the packed key would overflow 32 bits, on the
+kernel backend (the JAX package: on the TPU); ``EGS_XLA_GRAD_SORT=0``
+inverts ``gsid_counts`` by K7, on the kernel backend. With
+``use_kernels=False`` the radix route runs K8's plain version and the two K7
+routes are not taken. Every route's integer outputs equal the default
+route's.
 
 Overflow policy: if the patch count exceeds ``max_patches`` (or the row count
 ``max_rows``), the patches of the *deepest* Gaussians are dropped and
@@ -39,6 +58,7 @@ Overflow policy: if the patch count exceeds ``max_patches`` (or the row count
 
 import torch
 
+from easygaussiansplatting_tpu_torch.ops.kernels import binning as kernel_binning
 from easygaussiansplatting_tpu_torch.ops.kernels import radix, scan, sort
 from easygaussiansplatting_tpu_torch.utils.envflag import env_flag
 
@@ -108,14 +128,23 @@ def bin_gaussians(us, depths, areas, valid, *, width, height, max_patches,
       gsid_counts [N] — with ``gsid_counts=True`` only: each gaussian's
                   kept patch count, in gaussian id order (the backward's
                   gradient reduce reads segment ends from its cumsum).
+    and ``kernel``, a bool: True where K12 built the lists, False where the
+    slot path did (the module docstring says which calls take which).
     """
-    cumsum = scan.multi_cumsum if use_kernels else scan.multi_cumsum_plain
     if max_rows is None:
         max_rows = max_patches
-    n = us.shape[0]
-    dev = us.device
     gx, gy = num_tiles(width, height)
     n_tiles = gx * gy
+    if takes_kernel(us, use_kernels):
+        out = kernel_binning.bin_lists(
+            us, depths, areas, valid, cinv2ds=cinv2ds, alphas=alphas, gx=gx, gy=gy,
+            max_patches=max_patches, max_rows=max_rows, gsid_counts=gsid_counts)
+        return {**out, "kernel": True}
+
+    # The slot path.
+    cumsum = scan.multi_cumsum if use_kernels else scan.multi_cumsum_plain
+    n = us.shape[0]
+    dev = us.device
     f = torch.float64 if us.dtype == torch.float64 else torch.float32
     i32 = torch.int32
 
@@ -137,9 +166,7 @@ def bin_gaussians(us, depths, areas, valid, *, width, height, max_patches,
     usg = us.to(f)
     if cinv2ds is not None:
         cg = cinv2ds.to(f)
-        ag = torch.clamp(alphas.to(f), min=1e-12)
-        r2 = 2.0 * torch.log(ag / _scalar(ALPHA_SKIP, ag)) * (1.0 + 1e-5) + 1e-4
-        r2 = torch.clamp(r2, min=0.0)
+        r2 = skip_radius2(alphas.to(f))
     else:
         cg = torch.zeros((n, 3), dtype=f, device=dev)
         cg[:, 0] = 1.0
@@ -250,7 +277,25 @@ def bin_gaussians(us, depths, areas, valid, *, width, height, max_patches,
             counts = torch.empty(n, dtype=i32, device=dev)
             counts[order.long()] = count_sorted
         out["gsid_counts"] = counts
+    out["kernel"] = False
     return out
+
+
+def skip_radius2(alphas):
+    """Each gaussian's skip-ellipse radius^2: where alpha * exp(-q / 2)
+    falls to ALPHA_SKIP, with a relative and an absolute margin."""
+    ag = torch.clamp(alphas, min=1e-12)
+    r2 = 2.0 * torch.log(ag / _scalar(ALPHA_SKIP, ag)) * (1.0 + 1e-5) + 1e-4
+    return torch.clamp(r2, min=0.0)
+
+
+def takes_kernel(us, use_kernels):
+    """True where ``bin_gaussians`` builds its lists with K12: CUDA tensors on
+    the kernel route and none of the opt-in sort routes (which keep the slot
+    path, K7's and K8's)."""
+    return (use_kernels and us.device.type == "cuda"
+            and not env_flag("EGS_RADIX_SORT") and not env_flag("EGS_LEX_SORT")
+            and env_flag("EGS_XLA_GRAD_SORT", default=True))
 
 
 def _counting_sort_by_tile_plain(tile, *vals, n_tiles):

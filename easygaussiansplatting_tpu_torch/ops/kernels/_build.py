@@ -30,10 +30,11 @@ LIB_NAME = "libegs_kernels.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Per-source extra flags. The preprocess chain ends in ceil() on the 3-sigma
-# extents, where one ulp of drift can change a tile list: keep nvcc from
-# contracting its multiply-adds, so it rounds where the plain PyTorch chain
-# (one kernel per operation) rounds.
-EXTRA_FLAGS = {"preprocess.cu": ["-fmad=false"]}
+# extents, and K12's row extent in floor() on the ellipse's x-range, where
+# one ulp of drift can change a tile list: keep nvcc from contracting their
+# multiply-adds, so they round where the plain PyTorch chain (one kernel per
+# operation) rounds.
+EXTRA_FLAGS = {"preprocess.cu": ["-fmad=false"], "binning.cu": ["-fmad=false"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -85,6 +86,16 @@ SIGNATURES = {
     # to five ints
     "egs_jpeg_plan": [_I, _I, _PL],
     "egs_jpeg_info": [_I, _P],
+    # K12, binning: (0) prep, (1) count, (3)+(4) emit and tile counts, (6)
+    # place (the depth sort and K3 run between them from the wrapper; the
+    # last two take the plan's chunk, chunks, band and bands); its plan, to
+    # seven int64s
+    "egs_bin_prep": [_P, _L, _P, _L, _P, _L, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "egs_bin_count": [_P, _P, _P, _P, _L, _P, _L, _P, _I, _P, _P],
+    "egs_bin_emit": [_P, _P, _P, _L, _P, _L, _P, _I, _I, _I, _P, _P, _I, _L, _P, _P, _P, _P,
+                     _P, _I, _I, _I, _I, _P],
+    "egs_bin_place": [_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "egs_bin_plan": [_I, _L, _PL],
 }
 
 

@@ -4,8 +4,8 @@ Port of easygaussiansplatting_tpu/ops/rasterize.py (``resolve_backend``,
 ``raster_from_aux``, ``render``).
 
 Backends:
-  "cuda"  — the hand-written kernels: K1 preprocess, K3 cumsums inside
-            binning, K4 blend, and for gradients K2, K5 and K6. CUDA
+  "cuda"  — the hand-written kernels: K1 preprocess, K12 binning (with
+            K3 cumsums), K4 blend, and for gradients K2, K5 and K6. CUDA
             tensors only.
   "tiled" — the plain PyTorch versions of all of them (ops/stages.py,
             torch.cumsum, ops/rasterize_tiled.py, the autograd VJP of the
@@ -26,7 +26,8 @@ take no gradient.
 
 With tracing on (utils/trace.py) the stages are the spans
 ``render.preprocess``, ``render.binning`` and ``render.blend``, and
-binning's patch and row counts the request's ``binning.*`` counters.
+binning's patch and row counts and its route (``binning.kernel``: 1 for
+K12, 0 for the slot path) the request's ``binning.*`` counters.
 """
 
 import torch
@@ -93,11 +94,12 @@ def raster_from_aux(us, cinv2ds, alphas, colors, depths, areas, valid, *,
             cinv2ds=cinv2ds.detach(), alphas=alphas.detach(), gsid_counts=need_grads,
             use_kernels=use_kernels,
         )
-    # the request's counters (tracing on): patches needed and dropped, and
-    # the slots that binning's scatters and scans run over
+    # the request's counters (tracing on): patches needed and dropped, the
+    # slots of the budget, and whether K12 (1) or the slot path (0) binned
     trace.count({"binning.patches": binning["total"], "binning.dropped": binning["n_dropped"],
                  "binning.rows": binning["total_rows"],
-                 "binning.rows_dropped": binning["rows_dropped"], "binning.slots": max_patches})
+                 "binning.rows_dropped": binning["rows_dropped"], "binning.slots": max_patches,
+                 "binning.kernel": int(binning["kernel"])})
     with torch.set_grad_enabled(need_grads and torch.is_grad_enabled()), \
             trace.span("render.blend"):
         image, final_tau, contrib = RasterizeFunction.apply(

@@ -1,6 +1,8 @@
 """PyTorch port: tile binning against the JAX binning on the same (JAX-stage)
 arrays — every integer output exactly equal."""
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,6 +12,8 @@ from easygaussiansplatting_tpu.data.synthetic import make_synthetic_scene
 from easygaussiansplatting_tpu.ops import binning as jax_binning
 from easygaussiansplatting_tpu.ops import stages as jax_stages
 from easygaussiansplatting_tpu_torch.ops import binning
+from easygaussiansplatting_tpu_torch.ops.rasterize import raster_from_aux
+from easygaussiansplatting_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
 
@@ -210,3 +214,97 @@ def test_lex_sort_route_matches_default_route(monkeypatch):
         assert torch.equal(got[k], default[k]), k
     binning.bin_gaussians(*args, use_kernels=False, **kw)
     assert calls == ["sort_pairs"]  # not on the all-plain path
+
+
+# K12's route (ops/binning.py::takes_kernel), decided on what the call can
+# observe. A stand-in carries a CUDA device, and a stand-in K12 records its
+# calls, so nothing here needs the card or nvcc.
+CUDA_F32 = SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32, shape=(1, 2))
+
+
+@pytest.mark.parametrize("us,use_kernels,size,want", [
+    (CUDA_F32, True, (64, 48), True),
+    (CUDA_F32, False, (64, 48), False),             # the plain version
+    (torch.zeros((1, 2)), True, (64, 48), False),   # CPU tensors
+    (SimpleNamespace(device=torch.device("cuda"), dtype=torch.float64, shape=(1, 2)), True,
+     (64, 48), True),                               # float64: K12, which raises on it
+    (CUDA_F32, True, (4096, 4096), True),           # 65,536 tiles: no size threshold
+])
+def test_kernel_route_choice(monkeypatch, us, use_kernels, size, want):
+    assert binning.takes_kernel(us, use_kernels) is want
+    if not want:
+        return
+    calls = []
+    monkeypatch.setattr(binning.kernel_binning, "bin_lists",
+                        lambda *a, gx, gy, **kw: calls.append(gx * gy) or {})
+    out = binning.bin_gaussians(us, None, None, None, width=size[0], height=size[1],
+                                max_patches=4096)
+    assert out == {"kernel": True}
+    assert calls == [binning.num_tiles(*size)[0] * binning.num_tiles(*size)[1]]
+
+
+@pytest.mark.parametrize("flag,value,want", [
+    ("EGS_RADIX_SORT", "1", False), ("EGS_LEX_SORT", "1", False),
+    ("EGS_XLA_GRAD_SORT", "0", False),
+    ("EGS_RADIX_SORT", "0", True), ("EGS_LEX_SORT", "0", True),
+    ("EGS_XLA_GRAD_SORT", "1", True), ("EGS_GRAD_PERM", "0", True),
+    ("EGS_RADIX_REDUCE", "1", True),
+])
+def test_kernel_route_under_sort_flags(monkeypatch, flag, value, want):
+    """The opt-in sort routes of binning keep the slot path (K7's and K8's
+    routes); the reduce's flags and the flags' off values leave K12 on."""
+    for name in ("EGS_RADIX_SORT", "EGS_LEX_SORT", "EGS_XLA_GRAD_SORT"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv(flag, value)
+    assert binning.takes_kernel(CUDA_F32, True) is want
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_cpu_tensors_take_the_slot_path(monkeypatch, use_kernels):
+    calls = []
+    _spy(monkeypatch, binning.kernel_binning, "bin_lists", calls)
+    a = _stage_arrays(0)
+    got = binning.bin_gaussians(
+        torch.from_numpy(a["us"]), torch.from_numpy(a["depths"]),
+        torch.from_numpy(a["areas"]), torch.from_numpy(a["valid"]), width=W, height=H,
+        cinv2ds=torch.from_numpy(a["cinv2ds"]), alphas=torch.from_numpy(a["alphas"]),
+        max_patches=4096, gsid_counts=True, use_kernels=use_kernels)
+    assert got["kernel"] is False and calls == []
+
+
+@pytest.mark.parametrize("k12", [False, True])
+def test_binning_kernel_counter(monkeypatch, k12):
+    """``binning.kernel`` reads 1 where K12 built the lists and 0 where the
+    slot path did. K12 itself runs only on the card: here a stand-in with
+    its signature returns the slot path's lists, and the route is forced."""
+    a = _stage_arrays(1)
+    t = {k: torch.from_numpy(a[k]) for k in a}
+    colors = torch.from_numpy(np.random.default_rng(1).random((len(a["us"]), 3),
+                                                              dtype=np.float32))
+    kw = dict(width=W, height=H, backend="tiled", max_patches=4096, need_grads=False)
+    slot = binning.bin_gaussians(t["us"], t["depths"], t["areas"], t["valid"], width=W,
+                                 height=H, max_patches=4096, cinv2ds=t["cinv2ds"],
+                                 alphas=t["alphas"], use_kernels=False)
+    calls = []
+    if k12:
+        monkeypatch.setattr(binning, "takes_kernel", lambda *args: True)
+
+        def stand_in(us, depths, areas, valid, *, cinv2ds=None, alphas=None, gx, gy,
+                     max_patches, max_rows, gsid_counts=False):
+            calls.append((gx, gy, max_patches, max_rows, gsid_counts))
+            return {k: v for k, v in slot.items() if k != "kernel"}
+
+        monkeypatch.setattr(binning.kernel_binning, "bin_lists", stand_in)
+    tracer = trace.enable()
+    try:
+        with trace.request("render"):
+            image, aux = raster_from_aux(*(t[k] for k in ("us", "cinv2ds", "alphas")), colors,
+                                         *(t[k] for k in ("depths", "areas", "valid")), **kw)
+    finally:
+        trace.disable()
+    (root,) = tracer.named("render")
+    assert root.counters["binning.kernel"] == int(k12)
+    assert aux["binning"]["kernel"] is k12
+    assert calls == ([(4, 3, 4096, 4096, False)] if k12 else [])
+    for k in INT_KEYS:
+        assert torch.equal(aux["binning"][k], slot[k]), k

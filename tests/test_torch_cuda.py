@@ -51,6 +51,7 @@ from easygaussiansplatting_tpu_torch.models.convert import gaussians_from_numpy
 from easygaussiansplatting_tpu_torch.models.gaussians import pool_from_arrays
 from easygaussiansplatting_tpu_torch.ops import stages
 from easygaussiansplatting_tpu_torch.ops.binning import bin_gaussians
+from easygaussiansplatting_tpu_torch.ops.kernels import binning as kernel_binning
 from easygaussiansplatting_tpu_torch.ops.kernels import (
     jpeg,
     preprocess,
@@ -236,12 +237,13 @@ def test_rasterize_kernel_matches_plain(cuda, stack):
 
 def test_render_kernel_path_matches_plain_path(cuda):
     g = _scene(2, 2000)
-    counts = [w.launches for w in (preprocess.preprocess_fwd, scan.multi_cumsum,
-                                   rasterize.rasterize_fwd)]
+    wrappers = (preprocess.preprocess_fwd, kernel_binning.bin_lists, scan.multi_cumsum,
+                rasterize.rasterize_fwd)
+    counts = [w.launches for w in wrappers]
     img, aux = render(*(g[k] for k in KEYS), CAM, max_patches=8192)
-    after = [w.launches for w in (preprocess.preprocess_fwd, scan.multi_cumsum,
-                                  rasterize.rasterize_fwd)]
-    assert [a - b for a, b in zip(after, counts)] == [1, 3, 1]
+    after = [w.launches for w in wrappers]
+    assert [a - b for a, b in zip(after, counts)] == [1, 1, 2, 1]  # K1, K12 (with 2 K3), K4
+    assert aux["binning"]["kernel"] is True
     img_p, aux_p = render(*(g[k] for k in KEYS), CAM, max_patches=8192, backend="tiled")
     torch.testing.assert_close(img, img_p, atol=1e-4, rtol=0)
     for k in ("patch_gsid", "tile_start", "tile_cnt", "total"):
@@ -964,13 +966,14 @@ def _viewer_fixture(device, backend):
 def test_viewer_frame_kernels_match_plain(cuda, kw):
     """A SceneRenderer frame on the card's kernels against the all-plain
     path on the card: within 1 level, at most 0.1% of the pixels a level
-    off; K1 once, K3's 3 calls and K4 once a frame."""
+    off; K1 once, K12 once with K3's 2 calls and K4 once a frame."""
     kern, plain = _viewer_fixture(cuda, "cuda"), _viewer_fixture(cuda, "tiled")
     view = dict(azimuth=0.7, elevation=0.3, width=256, height=192)
-    wrappers = (preprocess.preprocess_fwd, scan.multi_cumsum, rasterize.rasterize_fwd)
+    wrappers = (preprocess.preprocess_fwd, kernel_binning.bin_lists, scan.multi_cumsum,
+                rasterize.rasterize_fwd)
     before = [w.launches for w in wrappers]
     got = kern.render(**view, **kw)
-    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 3, 1]
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 2, 1]
     want = plain.render(**view, **kw)
     d = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert got.shape == want.shape and d.max() <= 1 and (d > 0).any(-1).mean() <= 1e-3
@@ -1003,16 +1006,19 @@ def test_sh_demo_on_the_card_matches_the_cpu(cuda):
 def test_bench_scene_smoke_launches_per_step_and_render(cuda, capsys):
     """One --smoke epoch on the card: K2, K5, K6 once a step; K1, K4 once a
     step and once a render (8 ground-truth views, 4 eval views, the
-    training loop's eval at its last epoch); K3 three times each of those."""
+    training loop's eval at its last epoch); K12 once and K3 twice each of
+    those."""
     from easygaussiansplatting_tpu_torch import bench_scene
 
     wrappers = (preprocess.preprocess_fwd, preprocess.preprocess_bwd, scan.multi_cumsum,
-                rasterize.rasterize_fwd, rasterize.rasterize_bwd, scan.segmented_cumsum)
+                rasterize.rasterize_fwd, rasterize.rasterize_bwd, scan.segmented_cumsum,
+                kernel_binning.bin_lists)
     before = [w.launches for w in wrappers]
     lines, state = bench_scene.main(["--smoke", "--epochs", "1"])
     steps, renders = 8, 8 + 4 + 1
     assert [w.launches - b for w, b in zip(wrappers, before)] == [
-        steps + renders, steps, 3 * (steps + renders), steps + renders, steps, steps]
+        steps + renders, steps, 2 * (steps + renders), steps + renders, steps, steps,
+        steps + renders]
     assert "backend=cuda" in capsys.readouterr().out
     assert lines[1]["metric"] == "time_to_psnr25" and state["history"]["overflow_steps"] == [0]
 

@@ -32,7 +32,7 @@ VIEW = dict(azimuth=0.7, elevation=0.3, width=64, height=48)
 QUERY = "/render?az=0.7&el=0.3&w=64&h=48"
 RENDER_CHILDREN = {"render.wait", "render.preprocess", "render.binning", "render.blend"}
 BINNING = ("binning.patches", "binning.dropped", "binning.rows", "binning.rows_dropped",
-           "binning.slots")
+           "binning.slots", "binning.kernel")
 
 
 @pytest.fixture()
@@ -216,6 +216,7 @@ def test_served_render_spans_and_binning_counters(tracer, max_patches):
     assert set(root.counters) == set(BINNING)
     assert root.counters["binning.patches"] == int(aux["n_patches"]) > 0
     assert root.counters["binning.slots"] == max_patches
+    assert root.counters["binning.kernel"] == 0  # CPU tensors take the slot path
     assert root.counters["binning.rows"] == int(b["total_rows"])
     assert root.counters["binning.rows_dropped"] == int(b["rows_dropped"])
     dropped = root.counters["binning.dropped"]
