@@ -10,7 +10,9 @@ on a free port and the client, which warms the HTTP path before its window.
 The client's window is the run's window. Where the process may use two
 cores or more, the client runs alone on the last of them and every thread
 of the server's process on the others, so that neither takes the other's
-core. With ``--trace 1`` the renderer is a subclass
+core. With ``--trace 0`` the profiler traces the device's activity alone
+over every request of the window, in chunks (``DeviceClock``), for its
+busy seconds. With ``--trace 1`` the renderer is a subclass
 that times ``render_device`` (ending in a synchronise) and the encode, and
 one stretch of requests is profiled, with K4's inputs and the encoded
 frames kept for the readers.
@@ -27,6 +29,7 @@ moves.
 import base64
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -39,12 +42,17 @@ import torch
 
 from benchmark import blend
 from benchmark import scene as bscene
+from benchmark import stats
 from benchmark.reference import jpeg as ref_jpeg
 from benchmark.reference import jpeg_decode
 from benchmark.reference import render as ref_render
-from benchmark.trace import Keeper, Profile
+from benchmark.trace import Keeper, Profile, short_name, union
 
 CLIENT = Path(__file__).resolve().parent / "client.py"
+STRETCH_S = 5.0  # the window's request rate and p95 are also reported a stretch of this length
+# requests a profiled chunk of an untraced window: some 80,000 device records,
+# well inside the profiler's buffers
+CHUNK_REQUESTS = 2000
 
 
 class _Program:
@@ -76,10 +84,7 @@ class Tracer:
         self.resume = threading.Event()
         self.frames = []
         self.profile = None
-        self.groups = {"K1": (("preprocess_fwd_kernel",), prog.preprocess.preprocess_fwd, 1),
-                       "K4": (("rasterize_fwd_kernel",), prog.rasterize.rasterize_fwd, 1),
-                       "K11": (("jpeg_blocks_kernel", "jpeg_lengths_kernel", "jpeg_pack_kernel",
-                                "jpeg_stuff_kernel"), prog.jpeg.encode_jpeg, 4)}
+        self.groups = kernel_groups(prog)
 
     def renderer_class(self):
         tracer = self
@@ -152,6 +157,123 @@ class Tracer:
         self.p.rasterize.rasterize_fwd = self._orig
 
 
+def kernel_groups(prog):
+    """The port kernels whose device records are held against their
+    wrappers' launch counters: label -> (device kernel names, wrapper,
+    device kernels a launch)."""
+    return {"K1": (("preprocess_fwd_kernel",), prog.preprocess.preprocess_fwd, 1),
+            "K4": (("rasterize_fwd_kernel",), prog.rasterize.rasterize_fwd, 1),
+            "K11": (("jpeg_blocks_kernel", "jpeg_lengths_kernel", "jpeg_pack_kernel",
+                     "jpeg_stuff_kernel"), prog.jpeg.encode_jpeg, 4)}
+
+
+class DeviceClock:
+    """The untraced run's device clock: the device's busy seconds over
+    every request of the window, from ``torch.profiler`` tracing device
+    activity alone, in chunks of ``chunk`` requests so that its buffers never
+    fill. A chunk opens before request ``first`` and every ``chunk``
+    requests after it: that request waits while the run's main thread (a
+    profiler is stopped by the thread that started it) synchronises, stops
+    the open chunk and starts the next. The last chunk closes when the
+    client has ended."""
+
+    def __init__(self, prog, chunk=CHUNK_REQUESTS):
+        self.groups = kernel_groups(prog)
+        self.chunk = chunk
+        self.first = None  # set once the set-up's renders are counted
+        self.n = 0  # render_device calls, the set-up's among them
+        self.rendered = 0  # of them, those that went on to render
+        self.want, self.resume = threading.Event(), threading.Event()
+        self.prof = None
+        self.chunks = []  # (profile, requests, launches by kernel)
+        self.stall_s = 0.0
+
+    def renderer_class(self, base):
+        clock = self
+
+        class ClockedRenderer(base):
+            def render_device(self, **view):
+                clock.n += 1
+                if clock.first is not None and clock.n >= clock.first and (
+                        clock.n - clock.first) % clock.chunk == 0:
+                    clock.want.set()
+                    clock.resume.wait()
+                    clock.resume.clear()
+                clock.rendered += 1
+                return super().render_device(**view)
+
+        return ClockedRenderer
+
+    def warm(self, work):
+        """Run ``work`` under a chunk that is not kept: the profiler's
+        first start readies CUPTI, which takes seconds."""
+        self._start()
+        work()
+        self._stop()
+        self.chunks = []
+
+    def serve(self, alive):
+        """Main thread: close and open the chunks while ``alive()``, then
+        close the last."""
+        while True:
+            while not self.want.wait(0.05):
+                if not alive():
+                    if self.prof is not None:
+                        self._stop()
+                    return
+            self.want.clear()
+            t = time.perf_counter()
+            if self.prof is not None:
+                self._stop()
+            self._start()
+            self.stall_s += time.perf_counter() - t
+            self.resume.set()
+
+    def _start(self):
+        torch.cuda.synchronize()
+        self._from = (self.rendered, {k: w.launches for k, (_, w, _) in self.groups.items()})
+        self.prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        self.prof.start()
+
+    def _stop(self):
+        torch.cuda.synchronize()
+        self.prof.stop()
+        n0, l0 = self._from
+        self.chunks.append((self.prof, self.rendered - n0,
+                            {k: w.launches - l0[k] for k, (_, w, _) in self.groups.items()}))
+        self.prof = None
+
+    def reduce(self):
+        """{"busy_s", "requests"} over the chunks whose records match the
+        launches, with the count of chunks, those lost, those one record
+        short, and the seconds the requests waited for the chunks' changes.
+        A chunk may fall one record short of a kernel's launches: the
+        first kernel after the profiler's start (K1, which opens a render)
+        is at times not recorded, some 15 us of a chunk's seconds."""
+        cuda = torch.autograd.DeviceType.CUDA
+        names = {}
+        busy_s, requests, lost, short = 0.0, 0, [], 0
+        chunks, self.chunks = self.chunks, []
+        for prof, n, launched in chunks:
+            dev = [e for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+            records = dict.fromkeys(self.groups, 0)
+            for e in dev:
+                name = names.setdefault(e.name(), short_name(e.name()))
+                for k, (kernels, _, _) in self.groups.items():
+                    records[k] += name in kernels
+            records = {k: records[k] // per for k, (_, _, per) in self.groups.items()}
+            missing = sum(launched[k] - records[k] for k in records)
+            if missing > 1 or any(records[k] > launched[k] for k in records):
+                lost.append({k: [records[k], launched[k]] for k in records})
+                continue
+            short += missing
+            iv = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in dev)
+            busy_s += 1e-9 * sum(e - s for s, e in union(iv))
+            requests += n
+        return {"busy_s": busy_s, "requests": requests, "chunks": len(chunks), "lost": lost,
+                "one_short": short, "stall_s": self.stall_s}
+
+
 def warm_up(prog, renderer, sizes, view, quality):
     for lores in sizes:
         for _ in range(2):
@@ -161,12 +283,15 @@ def warm_up(prog, renderer, sizes, view, quality):
 
 
 def run(run):
+    phases = run.data.setdefault("setup_phases", {})
     p = _Program()
+    phases["imports"] = time.perf_counter() - run.t_proc
     dev = torch.device(run.device)
     cfg, wl = run.config, run.workload
     if dev.type == "cuda":
         p.build.build()
         p.build.library()
+        phases["library"] = time.perf_counter() - run.t_proc
         torch.cuda.reset_peak_memory_stats()
     tracer = None
     if run.trace and dev.type == "cuda":
@@ -174,7 +299,9 @@ def run(run):
         tracer = Tracer(run, p, prof["first_request"], prof["requests"], prof["every"],
                         prof["tries"])
     cls = tracer.renderer_class() if tracer else p.server.SceneRenderer
-    phases = run.data.setdefault("setup_phases", {})
+    clock = DeviceClock(p) if not run.trace and dev.type == "cuda" else None
+    if clock:
+        cls = clock.renderer_class(cls)
     phases["build"] = time.perf_counter() - run.t_proc
     scene = bscene.view_scene(cfg, dev)
     host = {k: v.cpu().numpy() for k, v in scene.items()}
@@ -192,11 +319,17 @@ def run(run):
     # requests come before the window's
     run.data["spans_skip"] = 2 * len(sizes) + wl["warmup_requests"]
     try:
-        warm_up(p, renderer, sizes, view, cfg["jpeg_quality"])
+        if clock:  # the profiler's first start, which is slow, in the set-up
+            clock.warm(lambda: warm_up(p, renderer, sizes, view, cfg["jpeg_quality"]))
+            clock.first = run.data["spans_skip"] + 1
+        else:
+            warm_up(p, renderer, sizes, view, cfg["jpeg_quality"])
         phases["warm_up"] = time.perf_counter() - run.t_proc
-        out = serve_window(run, p, renderer, tracer)
+        out = serve_window(run, p, renderer, tracer, clock)
     finally:
         p.server.encode_jpeg = encode
+    if clock:
+        run.data["device_clock"] = clock.reduce()
     if tracer and run.profile is None and run.profile_lost is None:
         run.profile_lost = "the window ended before the profiled requests"
     reqs = out["requests"]
@@ -207,10 +340,26 @@ def run(run):
     run.failed = sum(not r["ok"] for r in reqs)
     run.data.update({"latencies_ms": [1e3 * (r["t1"] - r["t0"]) for r in reqs],
                      "requests": reqs, "warmup": out["warmup"], "completed": len(reqs)})
+    run.data["window_stretches"] = window_stretches(reqs, out["t_start"], out["t_end"])
+    run.data["host_window"] = {"frames_per_s": stats.rate(len(reqs), run.window_s),
+                               "frame_ms_p95": stats.percentile(run.data["latencies_ms"], 95)}
     if dev.type == "cuda":
         run.memory_peak = torch.cuda.max_memory_allocated()
     del renderer
     compare(run, {int(k): base64.b64decode(v) for k, v in out["sample"].items()}, reqs, dev)
+
+
+def window_stretches(reqs, t_start, t_end, every=STRETCH_S):
+    """The window's request rate and p95 latency (ms) in each stretch of
+    ``every`` seconds, a request counted in the stretch it completed in;
+    the last stretch is what remains of the window."""
+    n = max(1, math.ceil((t_end - t_start) / every))
+    lat = [[] for _ in range(n)]
+    for r in reqs:
+        lat[min(int((r["t1"] - t_start) // every), n - 1)].append(1e3 * (r["t1"] - r["t0"]))
+    seconds = [every] * (n - 1) + [t_end - t_start - every * (n - 1)]
+    return {"seconds": every, "frames_per_s": [len(v) / s for v, s in zip(lat, seconds)],
+            "frame_ms_p95": [stats.percentile(v, 95) if v else None for v in lat]}
 
 
 def pin_process(cores):
@@ -246,8 +395,10 @@ class GcTimes:
         gc.callbacks.remove(self)
 
 
-def serve_window(run, prog, renderer, tracer):
+def serve_window(run, prog, renderer, tracer, clock=None):
     """Serve the client's window; returns the client's JSON."""
+    # The card's host shows no SMT topology and does not enforce affinity,
+    # so no siblings are read: the client takes the last CPU.
     cores = sorted(os.sched_getaffinity(0))
     client_core = cores[-1] if len(cores) > 1 else None
     if client_core is not None:
@@ -284,6 +435,8 @@ def serve_window(run, prog, renderer, tracer):
         with GcTimes() as gct:
             if tracer:
                 tracer.serve_profile(lambda: reader.is_alive())
+            elif clock:
+                clock.serve(lambda: reader.is_alive())
             reader.join(run.seconds + 300)
         run.data["server_gc"] = {"count": gct.count, "seconds": gct.seconds}
         child.wait(60)

@@ -3,7 +3,7 @@ which no operation ran on the device (HTTP, the client and host work
 between the renders count as idle)."""
 
 LAYER = "device"
-MOVES = "frames_per_s"
+MOVES = "frame_device_ms"
 
 
 def read(run):

@@ -7,7 +7,7 @@ The encode's integer work is not counted."""
 from benchmark import blend, counting
 
 LAYER = "viewer renderer"
-MOVES = "frames_per_s"
+MOVES = "frame_device_ms"
 
 
 def read(run):

@@ -7,7 +7,7 @@ from benchmark import blend, counting
 from benchmark.reference import jpeg
 
 LAYER = "JPEG kernel (K11)"
-MOVES = "frames_per_s"
+MOVES = "frame_device_ms"
 NAMES = ("jpeg_blocks_kernel", "jpeg_lengths_kernel", "jpeg_pack_kernel", "jpeg_stuff_kernel")
 
 

@@ -5,7 +5,7 @@ profiled device time."""
 from benchmark import blend
 
 LAYER = "blend kernels (K4, K5)"
-MOVES = "frames_per_s"
+MOVES = "frame_device_ms"
 
 
 def read(run):

@@ -4,7 +4,7 @@ around SceneRenderer.render_device, ending in a synchronise (traced run)."""
 import statistics
 
 LAYER = "viewer renderer"
-MOVES = "frames_per_s"
+MOVES = "frame_device_ms"
 
 
 def read(run):

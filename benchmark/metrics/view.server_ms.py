@@ -6,7 +6,7 @@ with the requests in order (traced run)."""
 import statistics
 
 LAYER = "HTTP server"
-MOVES = "frames_per_s"
+MOVES = "frame_device_ms"
 
 
 def read(run):

@@ -66,7 +66,9 @@ def main(argv=None):
         return 3
     if run.profile_lost:
         print(f"profile: {run.profile_lost}", file=sys.stderr)
-    for key in ("setup_phases", "server_gc"):  # seconds from the process's start; the window's gc
+    # seconds from the process's start; the window's gc; its rate and p95 by
+    # stretch and whole, on the host's clock; the device clock's chunks
+    for key in ("setup_phases", "server_gc", "window_stretches", "host_window", "device_clock"):
         if key in run.data:
             print(f"{key}: {json.dumps(run.data[key])}", file=sys.stderr)
     for name, value, limit in run.checks:

@@ -1,7 +1,9 @@
 """The arithmetic of the end-to-end metrics: a percentile over every request,
-a rate over the whole window, and the time a curve first crosses a target."""
+a rate over the whole window, and the time a curve first crosses a target;
+and of a set of runs: its spread, and its quartile spread."""
 
 import math
+import statistics
 
 
 def percentile(values, q):
@@ -37,3 +39,24 @@ def crossing_time(points, target, window_s):
             return t0 + (target - v0) / (v - v0) * (t - t0)
         prev = (t, v)
     return window_s
+
+
+def spread(values):
+    """A set of runs' spread: the range of the runs, leaving out the run
+    farthest from their median where that narrows it, over the median. A
+    metric whose runs spread by more than half its bound cannot tell a
+    change from noise."""
+    xs = sorted(values)
+    med = statistics.median(xs)
+    if len(xs) > 2:
+        far = 0 if med - xs[0] > xs[-1] - med else -1
+        xs.pop(far)
+    return (xs[-1] - xs[0]) / med
+
+
+def quartile_spread(values):
+    """The distance between the first and third quartiles over the median,
+    as ``statistics.quantiles(values, n=4)`` places them: the spread behind
+    a bound (five times the widest, at most 0.25)."""
+    q1, _, q3 = statistics.quantiles(values, n=4)
+    return (q3 - q1) / statistics.median(values)

@@ -1,5 +1,6 @@
 """The harness on the CPU: discovery of configurations, traffic mixes and
-metrics by name, the metrics' arithmetic, the frozen counting pinned to its
+metrics by name, the metrics' arithmetic, a set's spreads and its summary,
+the window's stretches, the frozen counting pinned to its
 outputs, what the harness and the reference import, a run without a card,
 and a cell defined by files alone."""
 
@@ -7,12 +8,15 @@ import json
 import math
 import subprocess
 import sys
+import threading
+import types
 from pathlib import Path
 
 import pytest
 import torch
 
-from benchmark import counting, harness, stats
+from benchmark import counting, harness, sets, stats
+from benchmark.drivers import http_viewer
 
 ROOT = Path(__file__).resolve().parents[2]
 SPEC = harness.load_spec(ROOT)
@@ -90,6 +94,159 @@ def test_rate_is_over_the_whole_window():
     assert stats.rate(300, 30.0) == 10.0
     with pytest.raises(ValueError):
         stats.rate(1, 0.0)
+
+
+def test_spread_leaves_out_the_farthest_run():
+    # range over the median, leaving out the run farthest from the median
+    assert stats.spread([100.0, 101.0, 99.0, 150.0]) == pytest.approx(2.0 / 100.5)
+    assert stats.spread([50.0, 100.0, 101.0, 99.0]) == pytest.approx(2.0 / 99.5)
+    assert stats.spread([10.0, 10.0, 10.0]) == 0.0
+    assert stats.spread([9.0, 11.0]) == pytest.approx(0.2)  # two runs: nothing left out
+    # two far runs are not both left out
+    assert stats.spread([50.0, 100.0, 100.0, 150.0, 100.0]) == pytest.approx(0.5)
+
+
+def test_quartile_spread_is_pythons():
+    values = [1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0, 8.0]
+    q1, q3 = 2.25, 6.75  # statistics.quantiles' default (exclusive) method: (n + 1) p
+    assert stats.quartile_spread(values) == pytest.approx((q3 - q1) / 4.5)
+    assert stats.quartile_spread([5.0] * 6) == 0.0
+
+
+def test_window_stretches():
+    # 10 requests a second for 12 s, then one slow request in the last stretch
+    reqs = [{"t0": 0.1 * i, "t1": 0.1 * i + 0.05} for i in range(119)]
+    reqs.append({"t0": 11.9, "t1": 11.99})
+    st = http_viewer.window_stretches(reqs, 0.0, 12.0)
+    assert st["seconds"] == 5.0
+    assert st["frames_per_s"] == pytest.approx([10.0, 10.0, 10.0])  # the last 2 s hold 20
+    assert st["frame_ms_p95"][:2] == pytest.approx([50.0, 50.0])
+    assert st["frame_ms_p95"][2] > 50.0
+    assert sum(f * s for f, s in zip(st["frames_per_s"], [5, 5, 2])) == pytest.approx(len(reqs))
+
+
+def test_sets_keep_a_root_named_twice_apart():
+    def rec(side, value):
+        return {"side": side, "cell": "c", "set": 0,
+                "line": {"correct": True, "metrics": {"m": {"value": value}}}}
+
+    recs = [rec("0:/a", 10.0), rec("1:/b", 99.0), rec("2:/a", 20.0),
+            rec("0:/a", 12.0), rec("1:/b", 98.0), rec("2:/a", 22.0)]
+    got = sets.summary(recs)
+    assert sorted(got) == ["0:/a|c|0", "1:/b|c|0", "2:/a|c|0"]
+    assert got["0:/a|c|0"]["m"]["median"] == 11.0
+    assert got["2:/a|c|0"]["m"]["median"] == 21.0
+    assert got["2:/a|c|0"]["runs"] == 2 and got["2:/a|c|0"]["correct"] == 2
+
+
+def test_sets_summarise_the_host_window():
+    recs = [{"side": "0:/a", "cell": "c", "set": 0, "host_window": {"frames_per_s": v},
+             "line": {"correct": True, "metrics": {"m": {"value": 1.0}}}}
+            for v in (100.0, 120.0, 110.0)]
+    got = sets.summary(recs)["0:/a|c|0"]
+    assert got["host.frames_per_s"]["median"] == 110.0
+    assert got["m"]["median"] == 1.0 and got["runs"] == 3
+
+
+class _Event:
+    def __init__(self, name, start_ns, duration_ns):
+        self._name, self._start, self._duration = name, start_ns, duration_ns
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return torch.autograd.DeviceType.CUDA
+
+    def start_ns(self):
+        return self._start
+
+    def duration_ns(self):
+        return self._duration
+
+
+class _Profile:
+    """Stands in for torch.profiler.profile: keeps the events of the
+    renders made while it is on."""
+
+    on = None
+
+    def __init__(self, activities):
+        self.events = []
+        self.profiler = types.SimpleNamespace(
+            kineto_results=types.SimpleNamespace(events=lambda: list(self.events)))
+
+    def start(self):
+        _Profile.on = self
+
+    def stop(self):
+        _Profile.on = None
+
+
+def _clock_program():
+    wrappers = [types.SimpleNamespace(launches=0) for _ in range(3)]
+    prog = types.SimpleNamespace(preprocess=types.SimpleNamespace(preprocess_fwd=wrappers[0]),
+                                 rasterize=types.SimpleNamespace(rasterize_fwd=wrappers[1]),
+                                 jpeg=types.SimpleNamespace(encode_jpeg=wrappers[2]))
+    lose = {}  # render -> the kernel whose record the profiler drops
+    count = [0]
+
+    class Renderer:
+        def render_device(self, **view):
+            count[0] += 1
+            t = 1000 * count[0]
+            for w in wrappers:
+                w.launches += 1
+            if _Profile.on is not None:
+                ev = [_Event("void preprocess_fwd_kernel<3>(float const*)", t, 100),
+                      _Event("rasterize_fwd_kernel", t + 50, 200),
+                      _Event("elementwise_kernel", t + 600, 10)]
+                ev += [_Event(f"jpeg_{k}_kernel", t + 300 + 10 * i, 10)
+                       for i, k in enumerate(("blocks", "lengths", "pack", "stuff"))]
+                _Profile.on.events += [e for e in ev if lose.get(count[0]) != e.name()]
+
+    return prog, Renderer, lose
+
+
+@pytest.mark.parametrize("dropped", [0, 1, 2])
+def test_device_clock_chunks_every_window_request(monkeypatch, dropped):
+    """Set-up's renders are left out; chunks of 3 requests open before the
+    window's 1st, 4th and 7th; each request is busy 250 + 40 + 10 ns; a
+    chunk one record short of its launches counts, one two short is left
+    out."""
+    monkeypatch.setattr(torch.profiler, "profile", _Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    prog, base, lose = _clock_program()
+    # K1's record of the window's 4th request, then K4's of its 5th: both in its second chunk
+    lose.update([(7, "void preprocess_fwd_kernel<3>(float const*)"),
+                 (8, "rasterize_fwd_kernel")][:dropped])
+    clock = http_viewer.DeviceClock(prog, chunk=3)
+    r = clock.renderer_class(base)()
+    clock.warm(lambda: [r.render_device() for _ in range(2)])
+    clock.first = 4  # two set-up renders and one warm-up request before the window
+
+    def client():
+        for _ in range(8):
+            r.render_device()
+
+    t = threading.Thread(target=client)
+    t.start()
+    clock.serve(t.is_alive)
+    t.join()
+    got = clock.reduce()
+    assert got["chunks"] == 3
+    if dropped == 2:
+        assert got["requests"] == 4 and got["lost"] == [{"K1": [2, 3], "K4": [2, 3],
+                                                         "K11": [3, 3]}]
+        assert got["busy_s"] == pytest.approx(4 * 300e-9)
+    else:
+        assert got["requests"] == 7 and got["lost"] == [] and got["one_short"] == dropped
+        # a request whose K1 went unrecorded is busy from its K4's start
+        assert got["busy_s"] == pytest.approx(7 * 300e-9 - dropped * 50e-9)
+    run = harness.Run(cell="x", seed=0, seconds=1, trace=False, t_proc=0.0, config={},
+                      workload={}, data={"device_clock": got})
+    assert harness.load_reader("frame_device_ms").read(run) == pytest.approx(
+        1e3 * got["busy_s"] / got["requests"])
 
 
 def test_bound_pinned():
@@ -254,8 +411,9 @@ def test_a_cell_of_files_alone_runs(tmp_path, kind):
     assert line["correct"] is True, line["checks"]
     assert line["attempted"] > 0 and line["failed"] == 0
     names = set(line["metrics"])
+    # on the CPU no metric of the device is read
     want = {m["name"] for m in harness.end_to_end_of(json.loads(
-        (root / "BENCHMARK.json").read_text()), cell)}
+        (root / "BENCHMARK.json").read_text()), cell) if m["source"] == "host_clock"}
     assert names == want
     assert all(math.isfinite(v["value"]) and v["value"] > 0 for v in line["metrics"].values())
     assert list(line)[-1] == "checks"

@@ -80,7 +80,7 @@ def short_name(name):
     return name.split(" ")[-1].split("::")[-1][-60:]
 
 
-def _union(intervals):
+def union(intervals):
     out = []
     for s, e in sorted(intervals):
         if out and s <= out[-1][1]:
@@ -161,7 +161,7 @@ class Profile:
             n = short_name(e.name)
             by_name[n] = by_name.get(n, 0.0) + e.time_range.elapsed_us() * 1e-6
             each.setdefault(n, []).append(e.time_range.elapsed_us() * 1e-6)
-        busy = _union(iv)
+        busy = union(iv)
         busy_s = sum(e - s for s, e in busy)
         edges = [self.t0] + [x for s, e in busy for x in (s, e)] + [self.t1]
         spans = [(n, a, b) for n, a, b in self.spans.items if b >= self.t0 and a <= self.t1]
