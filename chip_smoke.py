@@ -1,6 +1,6 @@
 """Chip smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the port's CUDA kernels from easygaussiansplatting_tpu_torch/csrc and
 drives the port's two paths at the configuration bench.py times (65,536
@@ -20,7 +20,13 @@ gaussians, SH degree 3, 979x546, max_patches 557,056, max_rows 229,376):
   and resident blocks an SM; K12 (binning) on the truck_view cell's scene
   (1,657,258 gaussians) at 160x120 and 640x480, its lists equal to the slot
   path's, its device kernels (five, the depth sort's and K3's two), and
-  its time beside the slot path's and its bytes bound;
+  its time beside the slot path's and its bytes bound; K4 on the same two
+  views against its plain version, two calls bit-equal, K5 on its chunked
+  outputs against K5's plain version, with its plan, counters, list lengths
+  and deepest pixel walks and its time; with ``--parent DIR`` (a checkout
+  of the port, such as the parent commit's), first, right after the build,
+  K4's time there and here on those views and the F2 input by
+  probes/k4_views.py, run as parent, this, this, parent;
 * the training path: ground truth of 4 views rendered by the port, a pool
   started from the scene with perturbed opacities and colours, and 23 steps
   of ``make_train_step`` (3 warm, 20 timed) cycling the views; then one step
@@ -123,6 +129,7 @@ Needs torch with CUDA and nvcc (CUDA_HOME, /usr/local/cuda or PATH); exits
 non-zero without a CUDA device. Imports nothing of JAX.
 """
 
+import argparse
 import contextlib
 import copy
 import dataclasses
@@ -212,7 +219,7 @@ from easygaussiansplatting_tpu_torch.train.loop import (
     render_pool_image,
     train,
 )
-from easygaussiansplatting_tpu_torch.probes import ab, exp_dma_stream, micro_bench
+from easygaussiansplatting_tpu_torch.probes import ab, exp_dma_stream, k4_views, micro_bench
 from easygaussiansplatting_tpu_torch.train.__main__ import main as train_main
 from easygaussiansplatting_tpu_torch.train.optimizer import adam_init
 from easygaussiansplatting_tpu_torch.utils.image import frame_u8, psnr, to_uint8
@@ -232,6 +239,7 @@ MAX_PATCHES = 557056
 MAX_ROWS = 229376
 N_VIEWS = 4
 SEED = 0
+LOG_SCALE_MEAN = -3.6  # the scene's gaussian sizes
 TRAIN_WARM, TRAIN_STEPS = 3, 20
 # the two-word (tile, slot) route: mp_bits 21, so (2,170 + 1) << 21 > 2^32
 LEX_MAX_PATCHES = 2_097_152
@@ -463,7 +471,7 @@ def scene_params(device, sh_random):
     """The bench scene: 65,536 gaussians, 48 SH columns (DC from the scene;
     the rest zero as bench.py has it, or random with ``sh_random``)."""
     scene = make_synthetic_scene(seed=SEED, n_gaussians=N_GAUSSIANS, n_cams=N_VIEWS,
-                                 width=WIDTH, height=HEIGHT, log_scale_mean=-3.6)
+                                 width=WIDTH, height=HEIGHT, log_scale_mean=LOG_SCALE_MEAN)
     shs = np.zeros((N_GAUSSIANS, SH_COLS), np.float32)
     shs[:, :3] = scene["shs"]
     if sh_random:
@@ -629,13 +637,21 @@ def phase_k3(device, flush, clock_mhz, n_sm):
             **bound(elems * 8, 0, 0, clock_mhz, n_sm, int_ops=elems)}, lines
 
 
-def k4_walk(tile_cnt, final_tau, contrib):
+def k4_walk(tile_cnt, final_tau, contrib, width=WIDTH, height=HEIGHT):
     """Each pixel's walk in K4 [H, W]: a pixel that saturated stops at its
     last contributor, any other one walks its whole tile list."""
-    gx = -(-WIDTH // TILE)
-    ty = torch.arange(HEIGHT, device=contrib.device)[:, None] // TILE
-    tx = torch.arange(WIDTH, device=contrib.device)[None, :] // TILE
+    gx = -(-width // TILE)
+    ty = torch.arange(height, device=contrib.device)[:, None] // TILE
+    tx = torch.arange(width, device=contrib.device)[None, :] // TILE
     return torch.where(final_tau < 1e-4, contrib.long(), tile_cnt.long()[ty * gx + tx])
+
+
+def tile_walks(walk, width, height):
+    """The deepest pixel walk of each tile [T] from k4_walk's [H, W]."""
+    gx, gy = num_tiles(width, height)
+    pad = torch.zeros((gy * TILE, gx * TILE), dtype=walk.dtype, device=walk.device)
+    pad[:height, :width] = walk
+    return pad.reshape(gy, TILE, gx, TILE).amax(dim=(1, 3)).reshape(-1)
 
 
 @functools.cache
@@ -735,8 +751,7 @@ def phase_k4(device, flush, clock_mhz, n_sm):
 
 # K12 on the truck_view cell's scene (benchmark/configs/truck_view.json), from
 # the viewer's orbit camera at azimuth 0, elevation 0.3
-K12_CONFIG = ROOT / "benchmark" / "configs" / "truck_view.json"
-K12_VIEWS = ((160, 120), (640, 480))
+K12_VIEWS = k4_views.TRUCK_SIZES  # the truck_view cell's preview and full frame
 # K12's device kernels, once each a bin_lists call; beside them the depth
 # sort's (torch.sort) and K3's, once in each of its two calls
 K12_NAMES = ("bin_prep_kernel", "bin_count_kernel", "bin_emit_kernel", "bin_hist_kernel",
@@ -787,20 +802,9 @@ def phase_k12(device, flush, clock_mhz, n_sm):
     device kernels of one call, and by CUDA events the whole of binning on
     each route (K12's: its five kernels, the depth sort and two K3 calls),
     and the bound."""
-    from benchmark.scene import view_scene  # the cell's own scene
-
-    cfg = json.loads(K12_CONFIG.read_text())
-    p = view_scene(cfg, device)
-    pws = p["pws"].cpu().numpy()  # SceneRenderer's orbit centre and radius
-    center = pws.mean(0)
-    radius = 2.5 * float(np.percentile(np.linalg.norm(pws - center, axis=1), 90))
-    center = center.astype(np.float64)
+    cfg, p, cams = k4_views.truck_scene(device, look_at_camera)
     lines, entry = [], None
-    for w, h in K12_VIEWS:
-        el, az = 0.3, 0.0
-        pos = center + radius * np.array([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
-                                          np.sin(el)])
-        cam = look_at_camera(pos, center, w, h, cfg["fov_f"] * w)
+    for (w, h), cam in zip(K12_VIEWS, cams):
         pre = preprocess.fused_preprocess(*(p[k] for k in ("pws", "shs", "alphas", "scales",
                                                            "rots")), cam, sh_degree=3)
         kw = dict(width=w, height=h, max_patches=cfg["max_patches"], cinv2ds=pre["cinv2ds"],
@@ -843,6 +847,105 @@ def phase_k12(device, flush, clock_mhz, n_sm):
         del pre, got, want
     del p
     return entry, lines
+
+
+def phase_k4_truck(device, flush, clock_mhz):
+    """K4 on the truck_view cell's scene at its 160x120 preview and 640x480
+    frame, through K1 and K12 as phase_k12 builds them: K4 within K4_TOL of
+    its plain version with >= K4_CONTRIB_MATCH of contrib equal, two calls
+    bit-equal, K5 on the chunked K4's outputs within KERNEL_REL of each
+    row's max|want| of its plain version (on a view K4 walks a CTA a tile,
+    the parent's kernel, K5's reading is printed and not held: PERF.md's
+    open questions); the plan (chunk length, CTAs), K4's counters, the list
+    lengths and deepest pixel walks a tile, and K4's time by CUDA events."""
+    cfg, p, cams = k4_views.truck_scene(device, look_at_camera)
+    resident = rasterize.resident_ctas(device)
+    lines = []
+    for (w, h), cam in zip(K12_VIEWS, cams):
+        pre = preprocess.fused_preprocess(*(p[k] for k in ("pws", "shs", "alphas", "scales",
+                                                           "rots")), cam, sh_degree=3)
+        b = bin_gaussians(pre["us"], pre["depths"], pre["areas"], pre["valid"], width=w,
+                          height=h, max_patches=cfg["max_patches"], cinv2ds=pre["cinv2ds"],
+                          alphas=pre["alphas"])
+        args = (pre["table"], b["patch_gsid"], b["tile_start"], b["tile_cnt"])
+        kw = dict(width=w, height=h)
+        counters = {}
+        img, tau, cont = rasterize.rasterize_fwd(*args, counters=counters, **kw)
+        again = rasterize.rasterize_fwd(*args, **kw)
+        img_p, tau_p, cont_p = rasterize.rasterize_plain(*args, **kw)
+        counts = {k: int(v) for k, v in counters.items()}
+        err = max(float((img - img_p).abs().max()), float((tau - tau_p).abs().max()))
+        bad = int((cont != cont_p).sum())
+        label = f"K4 {w}x{h} on truck_view"
+        require(err <= K4_TOL, f"{label}: image/tau differ from the plain version by {err:.3e}")
+        require(bad <= (1 - K4_CONTRIB_MATCH) * w * h,
+                f"{label}: contrib differs from the plain version on {bad} pixels")
+        require(all(torch.equal(x, y) for x, y in zip((img, tau, cont), again)),
+                f"{label}: two calls differ")
+        g_img = torch.randn((3, h, w), generator=torch.Generator().manual_seed(w)).to(device)
+
+        # K5 against its plain version on these K4 outputs: each row's max
+        # |error| over its max|want|
+        grads = rasterize.rasterize_bwd(*args, g_img, tau, cont, **kw)
+        grads_p = rasterize.rasterize_bwd_plain(*args, g_img, tau, cont, **kw)
+        k5_err = float(((grads - grads_p).abs().amax(1)
+                        / grads_p.abs().amax(1).clamp(min=REL_FLOOR)).max())
+        plan = rasterize.fwd_plan(b["tile_cnt"].numel(), resident)
+        if plan["chunk"]:
+            require(k5_err <= KERNEL_REL, f"{label}: K5 on K4's outputs off by {k5_err:.3e} of "
+                    "a row's max|want|")
+        held = ("held to KERNEL_REL" if plan["chunk"]
+                else "not held: K4 a CTA a tile is the parent's kernel")
+        walks = tile_walks(k4_walk(b["tile_cnt"], tau, cont, w, h), w, h).float()
+        cnt = b["tile_cnt"].float()
+        ms = event_ms(lambda a=args, kw=kw: rasterize.rasterize_fwd(*a, **kw), clock_mhz,
+                      flush=flush)
+        lines.append(
+            f"{label} ({int(b['total'])} patches, {cnt.numel()} tiles): image/tau max_abs_err "
+            f"{err:.3e}, contrib mismatches {bad} of {w * h}, two calls bit-equal, K5 on its "
+            f"outputs {k5_err:.3e} of a row's max|want| ({held}); list length a tile mean "
+            f"{float(cnt.mean()):.0f}, max {int(cnt.max())}; deepest pixel walk a tile mean "
+            f"{float(walks.mean()):.0f}, max {int(walks.max())}; saturated pixels "
+            f"{float((tau < 1e-4).float().mean()):.1%}; plan chunk {plan['chunk']} (0: a CTA "
+            f"a tile), {plan['grid']} CTAs of {resident} resident; counters {counts}; K4 "
+            f"{ms:.4f} ms by CUDA events")
+        del pre, b, args, img_p, tau_p, cont_p, grads, grads_p
+    del p
+    return lines
+
+
+K4_PROBE = ROOT / "easygaussiansplatting_tpu_torch" / "probes" / "k4_views.py"
+
+
+def k4_parent_times(parent):
+    """K4's time in the checkout ``parent`` and in this one on
+    probes/k4_views.py's views (F2, the truck preview and frame), each
+    checkout's probe run twice in the order parent, this, this, parent, in
+    child processes: a line a view with both medians and the change. Run it
+    before this process opens a torch.profiler window: a process started
+    after one makes the later windows lose device records."""
+    f2 = json.dumps(dict(seed=SEED, n_gaussians=N_GAUSSIANS, n_cams=N_VIEWS, width=WIDTH,
+                         height=HEIGHT, log_scale_mean=LOG_SCALE_MEAN, max_patches=MAX_PATCHES,
+                         max_rows=MAX_ROWS))
+    runs = []
+    for root in (parent, ROOT, ROOT, parent):
+        out = subprocess.run([sys.executable, str(K4_PROBE), "--root", str(root), "--f2", f2],
+                             capture_output=True, text=True, timeout=900)
+        require(out.returncode == 0, f"probes/k4_views.py --root {root} failed:\n"
+                f"{out.stdout[-2000:]}{out.stderr[-4000:]}")
+        runs.append((root == ROOT, json.loads(out.stdout.strip().splitlines()[-1])))
+    lines = []
+    for view in runs[0][1]["ms"]:
+        times = {side: [ms for own, r in runs if own == side for ms in r["ms"][view]]
+                 for side in (False, True)}
+        was, now = (float(np.median(times[side])) for side in (False, True))
+        lines.append(f"K4 {view} against the parent ({parent}), probes/k4_views.py as "
+                     f"parent, this, this, parent: parent "
+                     + " / ".join(f"{ms:.4f}" for ms in times[False]) + " ms, this "
+                     + " / ".join(f"{ms:.4f}" for ms in times[True])
+                     + f" ms by CUDA events; medians {was:.4f} -> {now:.4f} ms "
+                     f"({now / was - 1:+.1%})")
+    return lines
 
 
 def phase_slice(device):
@@ -971,7 +1074,7 @@ def train_setup(device, capacity=N_GAUSSIANS):
     perturbed by a seeded generator (scales left alone, so the patch count
     stays inside the budget)."""
     scene = make_synthetic_scene(seed=SEED, n_gaussians=N_GAUSSIANS, n_cams=N_VIEWS,
-                                 width=WIDTH, height=HEIGHT, log_scale_mean=-3.6)
+                                 width=WIDTH, height=HEIGHT, log_scale_mean=LOG_SCALE_MEAN)
     shs = np.zeros((N_GAUSSIANS, SH_COLS), np.float32)
     shs[:, :3] = scene["shs"]
     args = [scene["pws"], shs, scene["alphas"], scene["scales"], scene["rots"]]
@@ -2050,7 +2153,7 @@ def colmap_scene(device):
         direct.append(render(*args, cam, sh_degree=3, max_patches=MAX_PATCHES,
                              max_rows=MAX_ROWS, need_grads=False, device=device)[0])
     scene = make_synthetic_scene(seed=SEED, n_gaussians=N_GAUSSIANS, n_cams=N_VIEWS,
-                                 width=WIDTH, height=HEIGHT, log_scale_mean=-3.6)
+                                 width=WIDTH, height=HEIGHT, log_scale_mean=LOG_SCALE_MEAN)
     rng = np.random.default_rng(SFM_SEED)
     xyz = scene["pws"] + rng.normal(scale=SFM_JITTER, size=scene["pws"].shape)
     rgb = np.clip((scene["shs"] * 0.28209479177387814 + 0.5) * 255, 0, 255).astype(np.uint8)
@@ -2410,7 +2513,7 @@ def viewer_scene(device):
     and every 16th gaussian as a point cloud."""
     g = viewer_fps.scene_gaussians(N_GAUSSIANS, WIDTH, HEIGHT)
     cams = make_synthetic_scene(seed=SEED, n_gaussians=N_GAUSSIANS, n_cams=N_VIEWS, width=WIDTH,
-                                height=HEIGHT, log_scale_mean=-3.6)["cameras"]
+                                height=HEIGHT, log_scale_mean=LOG_SCALE_MEAN)["cameras"]
     rng = np.random.default_rng(SEED + 3)
     photos = [rng.random((3, HEIGHT // 8, WIDTH // 8)).astype(np.float32) for _ in cams]
     spread = float(np.percentile(np.linalg.norm(g["pws"] - g["pws"].mean(0), axis=1), 90))
@@ -2987,7 +3090,7 @@ def md_rank(rank, port, inp, out):
     pool = GaussianPool(*(state[k].to(dev) for k in GROUPS), alive=state["alive"].to(dev))
     gts = [g.to(dev) for g in state["gts"]]
     cams = make_synthetic_scene(seed=SEED, n_gaussians=N_GAUSSIANS, n_cams=N_VIEWS, width=WIDTH,
-                                height=HEIGHT, log_scale_mean=-3.6)["cameras"]
+                                height=HEIGHT, log_scale_mean=LOG_SCALE_MEAN)["cameras"]
     cfg = TrainConfig(max_patches=MAX_PATCHES, max_rows=MAX_ROWS, sh_degree=3)
     res, launches = {}, {}
     mesh = make_mesh(MD_RANKS)  # (1, MD_RANKS): MD_RANKS bands
@@ -3159,6 +3262,10 @@ def print_timing(entry):
 def main():
     if sys.argv[1:2] == ["--md-rank"]:  # a rank of the multi-device phase
         return md_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of the port whose K4 to time beside this one's")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA device",
               file=sys.stderr)
@@ -3180,6 +3287,9 @@ def main():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
     sass_dump()
+    if args.parent is not None:  # child processes: before the first profiler window
+        for line in k4_parent_times(args.parent):
+            print(line, flush=True)
 
     launches, lines, (render_once, wall_ms) = phase_slice(device)
     for line in lines:
@@ -3194,6 +3304,9 @@ def main():
             print(line, flush=True)
         print_timing(entry)
         kernels.append(entry)
+
+    for line in phase_k4_truck(device, flush, clock_mhz):
+        print(line, flush=True)
 
     for line in k11_kernel_counts(device):
         print(line, flush=True)

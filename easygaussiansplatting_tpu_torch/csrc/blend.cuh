@@ -95,8 +95,8 @@ __device__ __forceinline__ float blend_alpha(const float4& q, float e) {
 __device__ __forceinline__ bool passes_cutoff(const float4& q, float e) { return e >= q.z; }
 
 // The blend kernels, for egs_rasterize_info: each source returns its own
-// (they live in anonymous namespaces).
-const void* fwd_kernel();
+// (they live in anonymous namespaces); K4's a CTA a tile, or its chunks.
+const void* fwd_kernel(bool split);
 const void* bwd_kernel();
 
 }  // namespace egs_blend

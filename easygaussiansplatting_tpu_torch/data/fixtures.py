@@ -117,6 +117,66 @@ def stacked_tile(n, seed=0):
             "tile_cnt": np.full(1, n, np.int32)}
 
 
+def chunked_frame(lengths, width, height, saturated=(), seed=0):
+    """A frame of 16x16 tiles whose lists run long, for K4's chunks: tile t
+    (row-major) holds ``lengths[t]`` entries (0: an empty tile), drawn per
+    entry as kinds of :func:`stacked_tile` over the whole tile: faint ones
+    (alpha 0.002-0.006, sigma 1-3 px, so that a pixel walks thousands of
+    entries before it stops), opaque ones (alpha 0.6-0.98; one in twenty),
+    ones on the skip and clamp thresholds, and patch ids of -1. A tile in
+    ``saturated`` starts with three wide entries of alpha 1 (alpha' about
+    0.99 over the whole tile), so that every pixel stops within them and
+    the rest of its list lies behind. ``width`` and ``height`` need not be
+    multiples of 16 (ragged edge tiles). Not in the JAX package: a fixture
+    of the port's tests.
+
+    Entry j of the frame is gaussian j, its mean in frame pixels. Returns
+    float32 numpy arrays us [S,2], cinv2ds [S,3], alphas [S], colors [S,3]
+    and int32 patch_gsid [S], tile_start [T], tile_cnt [T], S the sum of
+    ``lengths`` (at least 1; a frame of empty tiles keeps one unused row).
+    """
+    gx, gy = -(-width // 16), -(-height // 16)
+    if len(lengths) != gx * gy:
+        raise ValueError(f"lengths must have {gx * gy} entries, got {len(lengths)}")
+    rng = np.random.default_rng(seed)
+    cnt = np.asarray(lengths, np.int64)
+    s = max(1, int(cnt.sum()))
+    tile = np.repeat(np.arange(gx * gy), cnt)
+    tile = np.concatenate([tile, np.zeros(s - len(tile), np.int64)])
+    origin = np.stack([tile % gx, tile // gx], axis=1) * 16.0
+    kind = rng.choice(5, size=s, p=[0.05, 0.75, 0.08, 0.04, 0.08])
+    us = origin + rng.uniform(-2.0, 18.0, (s, 2))
+    sigma = np.where(kind[:, None] == 0, rng.uniform(1.0, 5.0, (s, 2)),
+                     np.where(kind[:, None] == 3, rng.uniform(0.8, 1.5, (s, 2)),
+                              rng.uniform(1.0, 3.0, (s, 2))))
+    theta = rng.uniform(0.0, np.pi, s)
+    alphas = np.select([kind == 0, kind == 1, kind == 2, kind == 3],
+                       [rng.uniform(0.6, 0.98, s), rng.uniform(0.002, 0.006, s),
+                        rng.choice([0.002, 0.0021], s), rng.choice([0.99, 0.995, 1.0], s)],
+                       rng.uniform(0.002, 0.006, s))
+    start = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    for t in saturated:
+        if cnt[t] < 3:
+            raise ValueError(f"saturated tile {t} needs 3 entries, has {cnt[t]}")
+        j = slice(start[t], start[t] + 3)
+        us[j] = origin[start[t]] + 8.0
+        sigma[j], alphas[j] = 50.0, 1.0
+    c, si = np.cos(theta), np.sin(theta)
+    va, vb = sigma[:, 0] ** 2, sigma[:, 1] ** 2
+    cxx, cxy, cyy = c * c * va + si * si * vb, c * si * (va - vb), si * si * va + c * c * vb
+    det = cxx * cyy - cxy * cxy
+    cinv2ds = np.stack([cyy / det, -cxy / det, cxx / det], axis=1)
+    gsid = np.where(kind == 4, -1, np.arange(s))
+    gsid[cnt.sum():] = -1
+    for t in saturated:
+        gsid[start[t]:start[t] + 3] = np.arange(start[t], start[t] + 3)
+    return {"us": us.astype(np.float32), "cinv2ds": cinv2ds.astype(np.float32),
+            "alphas": alphas.astype(np.float32),
+            "colors": rng.uniform(0.0, 1.0, (s, 3)).astype(np.float32),
+            "patch_gsid": gsid.astype(np.int32), "tile_start": start.astype(np.int32),
+            "tile_cnt": cnt.astype(np.int32)}
+
+
 SEG_TILE = 1024  # positions a block of csrc/seg_scan.cu (its plan's tile)
 SEG_CASES = ("tile", "tile_minus_1", "tile_plus_1", "three_tile_segment", "startless_tile",
              "tile_edges", "one_segment", "every_position")

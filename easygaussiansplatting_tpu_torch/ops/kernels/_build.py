@@ -56,9 +56,15 @@ SIGNATURES = {
     # their plans: tile, launches, memsets and scratch words, to four int64s
     "egs_multi_cumsum_plan": [_L, _I, _PL, _PL, _PL, _PL],
     "egs_segmented_cumsum_plan": [_L, _I, _PL, _PL, _PL, _PL],
-    "egs_rasterize_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # K4 takes its plan's chunk length and grid, and its state (zeroed by
+    # the entry; null for a CTA a tile with nothing counted) and slots
+    "egs_rasterize_fwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _L, _P,
+                          _P],
+    # its plan: grid, state words and slot floats, to three int64s
+    "egs_rasterize_fwd_plan": [_I, _I, _I, _PL],
     "egs_rasterize_bwd": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    # K4's (0) or K5's (1) registers and resident blocks an SM, to two ints
+    # K4's (0: a CTA a tile; 2: chunks) or K5's (1) registers and resident
+    # blocks an SM, to two ints
     "egs_rasterize_info": [_I, _P],
     # the payload columns go in as two host arrays of device pointers
     # and one uninitialised scratch buffer with its length in int32 words

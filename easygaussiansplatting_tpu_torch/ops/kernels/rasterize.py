@@ -11,7 +11,10 @@ kernels themselves or is not needed: they gather table rows through
 ``patch_gsid`` (no packed per-patch array), fill empty tiles, and read and
 write [3,H,W] / [H,W] directly (no [T,3,P] relayout). The chunk x tile
 segment layout of the TPU grid (``binning.segment_layout``) has no
-counterpart: a block per tile reads its own range.
+counterpart: a block per tile reads its own range in K5, and in K4 where
+the frame's tiles fill the card. Where they do not (a 160x120 preview has 80
+tiles), K4 cuts each list into chunks, walked by the card's resident CTAs
+and combined front to back (:func:`fwd_plan`, csrc/rasterize_fwd.cu).
 
 The backward turns K5's per-patch gradients [9, M] into the table
 cotangent [N, TABLE_COLS] by sort and segmented sum, as the JAX package does
@@ -26,6 +29,7 @@ package; the JAX package's opt-in routes sort with K7 or K8 instead
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,6 +43,21 @@ from easygaussiansplatting_tpu_torch.ops.rasterize_tiled import (
 from easygaussiansplatting_tpu_torch.utils.envflag import env_flag
 
 INT32_MAX = 2**31 - 1
+
+# K4's chunk length. A frame with fewer tiles than half the card's resident
+# K4 CTAs cuts its lists into chunks of L entries, so that the first wave of
+# resident CTAs covers every tile to about WAVE_DEPTH entries; L is a
+# multiple of CHUNK_ALIGN, at least MIN_CHUNK. On an H100 K4 holds 1,584
+# chunk CTAs, 19 a tile of a 160x120 preview, whose deepest pixel walks run
+# to ~10k entries on a truck-sized scene; there L from 192 to 256 timed best
+# (0.307-0.317 ms against 0.33-0.44 at 128 and 384-512,
+# probes/k4_views.py --chunks): WAVE_DEPTH 4096 gives 224. Walks deeper than
+# the first wave reaches take chunks of the later waves.
+WAVE_DEPTH = 4096
+CHUNK_ALIGN = 32
+MIN_CHUNK = 64
+# K4's counters, the first words of its state
+COUNTERS = ("blend.items", "blend.items_skipped", "blend.rewalked")
 
 
 def rasterize_plain(table, patch_gsid, tile_start, tile_cnt, *, width, height):
@@ -67,30 +86,108 @@ def _check_inputs(table, patch_gsid, tile_start, tile_cnt, n_tiles):
             raise ValueError(f"{name} is on {t.device}, table on {table.device}")
 
 
-def rasterize_fwd(table, patch_gsid, tile_start, tile_cnt, *, width, height):
+def chunk_length(n_tiles, resident):
+    """K4's chunk length L for a frame of ``n_tiles`` tiles on a card that
+    holds ``resident`` of its CTAs at once: 0 (a CTA a tile, the whole list)
+    where fewer than two CTAs a tile fit, else WAVE_DEPTH over the CTAs a
+    tile, rounded up to CHUNK_ALIGN, at least MIN_CHUNK (at most WAVE_DEPTH
+    / 2, within the kernel's bound)."""
+    per_tile = resident // max(1, n_tiles)
+    if per_tile < 2:
+        return 0
+    length = -(-WAVE_DEPTH // per_tile)
+    return max(MIN_CHUNK, -(-length // CHUNK_ALIGN) * CHUNK_ALIGN)
+
+
+PLAN = ("grid", "state_words", "slot_floats")
+
+
+def fwd_plan(n_tiles, resident, chunk=None):
+    """K4's launch for ``n_tiles`` tiles on a card that holds ``resident``
+    chunk CTAs (``chunk``: L, by default :func:`chunk_length`): {"chunk",
+    "grid": CTAs, "state_words": int32 words of state, "slot_floats":
+    float32s of slots}, the last two 0 for a CTA a tile. Asks the kernel
+    library (csrc/rasterize_fwd.cu), so it needs the CUDA toolkit; raises
+    ValueError on a chunk past the kernel's bound."""
+    if chunk is None:
+        chunk = chunk_length(n_tiles, resident)
+    out = (ctypes.c_longlong * len(PLAN))()
+    if _build.library().egs_rasterize_fwd_plan(int(n_tiles), int(chunk), int(resident),
+                                                out) != 0:
+        raise ValueError(f"K4 takes no chunk of {chunk} entries ({n_tiles} tiles, "
+                         f"{resident} resident CTAs)")
+    return {"chunk": chunk, **dict(zip(PLAN, out))}
+
+
+@functools.lru_cache(maxsize=None)
+def resident_ctas(device):
+    """CTAs of chunked K4 the card ``device`` (a CUDA torch.device) holds at
+    once: its blocks an SM times the SMs. Asked once a device."""
+    with torch.cuda.device(device):
+        per_sm = kernel_info("fwd_split")["blocks_per_sm"]
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def rasterize_fwd(table, patch_gsid, tile_start, tile_cnt, *, width, height, counters=None):
     """K4 wrapper: blend the binned table rows into (image [3,H,W],
-    final_tau [H,W], contrib [H,W] int32), one 16x16 tile per block. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    final_tau [H,W], contrib [H,W] int32), one 16x16 tile per block, or,
+    where the frame's tiles do not fill the card, chunks of each tile's list
+    per block (:func:`fwd_plan`). CPU tensors take the plain version; CUDA
+    tensors launch the kernel. A ``counters`` dict receives the call's
+    COUNTERS as 0-d int32 tensors, without a synchronise: items walked (a
+    tile, or a chunk of one), items left on a tile that ended before them,
+    pixels walked again over the chunk their stop falls in. In chunks the
+    kernel counts them in its state, on the device; a CTA a tile, as the
+    plain version, walks every tile as one item (:func:`plain_counters`)."""
     gx, gy = num_tiles(width, height)
     _check_inputs(table, patch_gsid, tile_start, tile_cnt, gx * gy)
     if table.device.type == "cpu":
+        if counters is not None:
+            counters.update(plain_counters(gx * gy))
         return rasterize_plain(table, patch_gsid, tile_start, tile_cnt,
                                width=width, height=height)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
+    plan = fwd_plan(gx * gy, resident_ctas(table.device))
+    image, final_tau, contrib, state = launch_fwd(table, patch_gsid, tile_start, tile_cnt,
+                                                  plan, width=width, height=height)
+    if counters is not None:
+        counters.update(plain_counters(gx * gy) if state is None
+                        else zip(COUNTERS, state[:len(COUNTERS)]))
+    return image, final_tau, contrib
+
+
+def plain_counters(n_tiles):
+    """K4's COUNTERS for the plain version, which walks each of the
+    ``n_tiles`` tiles as one item, as K4 a CTA a tile does: {name: 0-d
+    int32 tensor}."""
+    return dict(zip(COUNTERS, torch.tensor([n_tiles, 0, 0], dtype=torch.int32)))
+
+
+def launch_fwd(table, patch_gsid, tile_start, tile_cnt, plan, *, width, height):
+    """Launch K4 on CUDA tensors with a :func:`fwd_plan`; returns (image,
+    final_tau, contrib, state: int32 [state_words] or None). Counts the
+    launch in ``rasterize_fwd.launches``."""
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned")
+    gx, gy = num_tiles(width, height)
     dev = table.device
     image = torch.empty((3, height, width), dtype=torch.float32, device=dev)
     final_tau = torch.empty((height, width), dtype=torch.float32, device=dev)
     contrib = torch.empty((height, width), dtype=torch.int32, device=dev)
+    state = (torch.empty(plan["state_words"], dtype=torch.int32, device=dev)
+             if plan["state_words"] else None)
+    slots = (torch.empty(plan["slot_floats"], dtype=torch.float32, device=dev)
+             if plan["slot_floats"] else None)
     _build.check(_build.library().egs_rasterize_fwd(
         table.data_ptr(), TABLE_COLS, patch_gsid.data_ptr(), tile_start.data_ptr(),
-        tile_cnt.data_ptr(), gx, gy, width, height, image.data_ptr(),
-        final_tau.data_ptr(), contrib.data_ptr(), _build.stream_ptr(table)),
+        tile_cnt.data_ptr(), gx, gy, width, height, plan["chunk"], plan["grid"],
+        image.data_ptr(), final_tau.data_ptr(), contrib.data_ptr(),
+        None if state is None else state.data_ptr(), plan["state_words"],
+        None if slots is None else slots.data_ptr(), _build.stream_ptr(table)),
         "egs_rasterize_fwd")
     rasterize_fwd.launches += 1
-    return image, final_tau, contrib
+    return image, final_tau, contrib, state
 
 
 rasterize_fwd.launches = 0
@@ -146,15 +243,19 @@ def rasterize_bwd(table, patch_gsid, tile_start, tile_cnt, g_image, final_tau, c
 rasterize_bwd.launches = 0
 
 
+KERNELS = ("fwd", "bwd", "fwd_split")
+
+
 def kernel_info(kernel):
-    """What the compiled K4 (``"fwd"``) or K5 (``"bwd"``) kernel takes on the
-    card: {"registers": per thread, "blocks_per_sm": resident blocks an SM
+    """What the compiled K4 (``"fwd"``: a CTA a tile; ``"fwd_split"``:
+    chunks) or K5 (``"bwd"``) kernel takes on the card: {"registers": per
+    thread, "blocks_per_sm": resident blocks an SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)}. Builds the kernels
     first if needed; needs the card."""
-    if kernel not in ("fwd", "bwd"):
-        raise ValueError(f"kernel must be 'fwd' or 'bwd', got {kernel!r}")
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
     out = (ctypes.c_int * 2)()
-    _build.check(_build.library().egs_rasterize_info(("fwd", "bwd").index(kernel),
+    _build.check(_build.library().egs_rasterize_info(KERNELS.index(kernel),
                                                      ctypes.addressof(out)),
                  "egs_rasterize_info")
     return dict(zip(("registers", "blocks_per_sm"), out))
@@ -211,14 +312,21 @@ class RasterizeFunction(torch.autograd.Function):
     """(image, final_tau, contrib) = K4(table rows by patch), with K5 and the
     sort-reduce as the backward of ``image`` into the table. ``final_tau``
     and ``contrib`` take no gradient. ``use_kernels=False`` runs the plain
-    versions on any device (the all-plain path)."""
+    versions on any device (the all-plain path). A ``counters`` dict
+    receives K4's counters (:func:`rasterize_fwd`)."""
 
     @staticmethod
     def forward(ctx, table, patch_gsid, tile_start, tile_cnt, gsid_counts, width, height,
-                use_kernels):
-        fwd = rasterize_fwd if use_kernels else rasterize_plain
-        image, final_tau, contrib = fwd(table, patch_gsid, tile_start, tile_cnt,
-                                        width=width, height=height)
+                use_kernels, counters=None):
+        if use_kernels:
+            image, final_tau, contrib = rasterize_fwd(table, patch_gsid, tile_start, tile_cnt,
+                                                      width=width, height=height,
+                                                      counters=counters)
+        else:
+            image, final_tau, contrib = rasterize_plain(table, patch_gsid, tile_start,
+                                                        tile_cnt, width=width, height=height)
+            if counters is not None:
+                counters.update(plain_counters(tile_cnt.numel()))
         ctx.save_for_backward(table, patch_gsid, tile_start, tile_cnt, gsid_counts,
                               final_tau, contrib)
         ctx.dims = (width, height, use_kernels)
@@ -235,4 +343,4 @@ class RasterizeFunction(torch.autograd.Function):
                    contrib, width=width, height=height)
         dtable = sort_reduce_grads(rows, patch_gsid, gsid_counts, use_kernels)
         dtable = torch.nn.functional.pad(dtable, (0, TABLE_COLS - LIVE_COLS))
-        return dtable, None, None, None, None, None, None, None
+        return dtable, None, None, None, None, None, None, None, None

@@ -27,7 +27,9 @@ take no gradient.
 With tracing on (utils/trace.py) the stages are the spans
 ``render.preprocess``, ``render.binning`` and ``render.blend``, and
 binning's patch and row counts and its route (``binning.kernel``: 1 for
-K12, 0 for the slot path) the request's ``binning.*`` counters.
+K12, 0 for the slot path) the request's ``binning.*`` counters; K4's work
+items walked and left, and its pixels walked again over a chunk, its
+``blend.*`` counters (ops/kernels/rasterize.py ``COUNTERS``).
 """
 
 import torch
@@ -100,11 +102,14 @@ def raster_from_aux(us, cinv2ds, alphas, colors, depths, areas, valid, *,
                  "binning.rows": binning["total_rows"],
                  "binning.rows_dropped": binning["rows_dropped"], "binning.slots": max_patches,
                  "binning.kernel": int(binning["kernel"])})
+    counters = {} if trace.counting() else None
     with torch.set_grad_enabled(need_grads and torch.is_grad_enabled()), \
             trace.span("render.blend"):
         image, final_tau, contrib = RasterizeFunction.apply(
             table, binning["patch_gsid"], binning["tile_start"], binning["tile_cnt"],
-            binning.get("gsid_counts"), width, height, use_kernels)
+            binning.get("gsid_counts"), width, height, use_kernels, counters)
+    if counters:
+        trace.count(counters)
     return image, {"contrib": contrib, "final_tau": final_tau,
                    "n_patches": binning["total"], "binning": binning}
 

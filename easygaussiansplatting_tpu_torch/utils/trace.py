@@ -178,6 +178,12 @@ def count(values):
             root.counters[name] = v
 
 
+def counting():
+    """True where :func:`count` keeps what it is given: tracing is on and
+    the thread is inside a request. Lets a caller skip making a counter."""
+    return _tracer is not None and _tracer.local.root is not None
+
+
 def note(**args):
     """Arguments of the current request's root record."""
     if _tracer is None:

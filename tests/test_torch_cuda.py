@@ -30,6 +30,7 @@ from easygaussiansplatting_tpu_torch.data.fixtures import (
     SCAN_TILE,
     SEG_CASES,
     SEG_TILE,
+    chunked_frame,
     culled_scene,
     degenerate_scene,
     jpeg_frame,
@@ -61,9 +62,10 @@ from easygaussiansplatting_tpu_torch.ops.kernels import (
     sort,
 )
 from easygaussiansplatting_tpu_torch.ops.rasterize import raster_from_aux, render
-from easygaussiansplatting_tpu_torch.probes import exp_dma_stream, micro_bench
+from easygaussiansplatting_tpu_torch.probes import chunk_stop, exp_dma_stream, micro_bench
 from easygaussiansplatting_tpu_torch.train.config import TrainConfig
 from easygaussiansplatting_tpu_torch.train.loop import loss_and_grads
+from easygaussiansplatting_tpu_torch.utils import trace
 from easygaussiansplatting_tpu_torch.utils.jpeg import coefficients, encode_jpeg_plain
 
 pytestmark = pytest.mark.cuda
@@ -459,7 +461,195 @@ def test_rasterize_kernels_on_stacked_tile(cuda, n):
     assert torch.equal(got, rasterize.rasterize_bwd(*args, g_img, tau, cont, **kw))
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def _chunked_args(cuda, lengths, width, height, saturated=(), seed=0):
+    f = {k: torch.from_numpy(v).to(cuda)
+         for k, v in chunked_frame(lengths, width, height, saturated, seed).items()}
+    s = f["us"].shape[0]
+    table = preprocess.pack_table(f["us"], f["cinv2ds"], f["alphas"], f["colors"],
+                                  torch.zeros(s, device=cuda), torch.zeros((s, 2), device=cuda))
+    return (table, f["patch_gsid"], f["tile_start"], f["tile_cnt"]), dict(width=width,
+                                                                         height=height)
+
+
+def _preview_chunk(cuda):
+    """K4's chunk length on a 160x120 preview (80 tiles) on this card."""
+    return rasterize.chunk_length(80, rasterize.resident_ctas(cuda))
+
+
+def _chunked_fwd(args, kw, chunk, cuda):
+    n_tiles = args[3].numel()
+    plan = rasterize.fwd_plan(n_tiles, rasterize.resident_ctas(cuda), chunk=chunk)
+    image, tau, cont, state = rasterize.launch_fwd(*args, plan, **kw)
+    return image, tau, cont, (None if state is None else state[:3].tolist())
+
+
+# K5 against its plain version on chunked K4 outputs of chunked_frame: on
+# an H100 each row read under 6.4e-5 of its max at every length but L + 1,
+# where row 2 (conic a) read 1.16e-4, on the tile kernel's outputs as on the
+# chunks' (the saturated tile's wide alpha-1 splats, gradients of 10-160;
+# K5's own rounding, an open question of PERF.md)
+K5_CHUNKED_REL = 2e-4
+CHUNKED_LENGTHS = {"L-1": (1, -1), "L": (1, 0), "L+1": (1, 1), "3L+1": (3, 1), "40L": (40, 0)}
+
+
+@pytest.mark.parametrize("length", sorted(CHUNKED_LENGTHS))
+def test_chunked_rasterize_matches_plain(cuda, length):
+    """K4 cut into chunks of a preview's length L (a 60x40 frame of 12 tiles:
+    two empty, ragged right and bottom edges, one whose pixels all stop in
+    its first three entries, the others ``length`` entries long) against the
+    plain version: image and tau within 1e-4, contrib equal on >= 99.99% of
+    pixels; two calls bit-equal; the default plan (a frame this small also
+    takes chunks) and a CTA a tile (chunk 0) hold as well, and up to L + 1
+    entries the chunks give the tile kernel's tau and contrib bit for bit;
+    K5 on the chunked K4's outputs within K5_CHUNKED_REL of each row's
+    max|want| of its plain version."""
+    big_l = _preview_chunk(cuda)
+    assert big_l > 0, "a 160x120 preview must take chunks"
+    times, plus = CHUNKED_LENGTHS[length]
+    n = times * big_l + plus
+    lengths = [n, 0, n, n, 1, n, 0, n, n, n, 2, n]
+    args, kw = _chunked_args(cuda, lengths, 60, 40, saturated=(5,), seed=n)
+    want = rasterize.rasterize_plain(*args, **kw)
+    got = _chunked_fwd(args, kw, big_l, cuda)
+    again = _chunked_fwd(args, kw, big_l, cuda)
+    tile = _chunked_fwd(args, kw, 0, cuda)
+    if n <= big_l + 1:  # one chunk, or a second of one entry: the tile kernel's tau, contrib
+        assert torch.equal(got[1], tile[1]) and torch.equal(got[2], tile[2])
+    for out in (got, rasterize.rasterize_fwd(*args, **kw), tile):
+        torch.testing.assert_close(out[0], want[0], atol=1e-4, rtol=0)
+        torch.testing.assert_close(out[1], want[1], atol=1e-4, rtol=0)
+        assert float((out[2] != want[2]).float().mean()) <= 1e-4
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
+    assert int(got[2].max()) <= n and int(got[2][16:32, 16:32].max()) <= 3
+    items, _, _ = got[3]
+    assert items >= 10  # every non-empty tile's first chunk at least
+    g_img = torch.randn((3, 40, 60), generator=torch.Generator().manual_seed(n)).to(cuda)
+
+    def k5_err(out):  # each row's max |K5 - plain| over its max|plain|
+        grads = rasterize.rasterize_bwd(*args, g_img, out[1], out[2], **kw)
+        grads_p = rasterize.rasterize_bwd_plain(*args, g_img, out[1], out[2], **kw)
+        return (grads - grads_p).abs().amax(1) / grads_p.abs().amax(1).clamp(min=1e-12)
+
+    assert float(k5_err(got).max()) <= K5_CHUNKED_REL
+
+
+def _stop_tiles(cuda):
+    us, cinv, alphas, colors, gsid, start, cnt = (torch.from_numpy(a).to(cuda)
+                                                  for a in chunk_stop.make_tiles(64))
+    table = preprocess.pack_table(us, cinv, alphas, colors, torch.zeros_like(alphas),
+                                  torch.zeros_like(us))
+    return (table, gsid, start, cnt), dict(width=64 * 16, height=16)
+
+
+@pytest.mark.parametrize("chunk", [24, 32, 40, 48])
+def test_chunked_rasterize_stops_inside_and_on_chunk_edges(cuda, chunk):
+    """probes/chunk_stop.py's tiles (64 of them): every pixel stops within
+    ulps of 1e-4 at entries 21 to 42 of its list, so chunks of 24 to 48 put
+    stops inside the first two chunks and on their edges, with pixels
+    entering the second a few ulps above 1e-4. The first chunk is the walk
+    from tau = 1 itself, so the second's inputs are exact and K4 in chunks
+    gives the contrib and tau of K4 a CTA a tile on every pixel (the plain
+    version's cumulative products round apart from both at these
+    transmittances, on about 0.1% of pixels); it takes no pixel again after
+    its stop (contrib <= 64, tau < 1e-4 everywhere), its image is within
+    1e-4 of the plain version's, and two calls are bit-equal."""
+    args, kw = _stop_tiles(cuda)
+    got = _chunked_fwd(args, kw, chunk, cuda)
+    tile = _chunked_fwd(args, kw, 0, cuda)
+    want = rasterize.rasterize_plain(*args, **kw)
+    assert int(got[2].max()) <= 64 and float(got[1].max()) < 1e-4
+    assert torch.equal(got[2], tile[2]) and torch.equal(got[1], tile[1])
+    torch.testing.assert_close(got[0], tile[0], atol=1e-6, rtol=0)
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], _chunked_fwd(args, kw, chunk, cuda)[:3]))
+    if chunk <= 32:  # stops past the first chunk: those pixels were walked again
+        assert got[3][2] > 0
+
+
+@pytest.mark.parametrize("chunk", [8, 16])
+def test_chunked_rasterize_keeps_the_stop_after_a_join(cuda, chunk):
+    """The same tiles in chunks of 8 or 16: stops fall two and more chunks
+    in, after chunks whose states joined as tau_in * tau_local, a product
+    that rounds apart from the walk's by an ulp or two, so at these
+    transmittances (within ulps of 1e-4) the stop moves by an entry on a
+    share of pixels. What K5 needs holds on every pixel: no pixel taken
+    again after its stop (contrib <= 64, tau < 1e-4), and K5 on these
+    outputs within 1e-4 of each row's max|want| of its plain version; the
+    contrib of K4 a CTA a tile stays on >= 98% of pixels, and two calls are
+    bit-equal."""
+    args, kw = _stop_tiles(cuda)
+    got = _chunked_fwd(args, kw, chunk, cuda)
+    tile = _chunked_fwd(args, kw, 0, cuda)
+    assert int(got[2].max()) <= 64 and float(got[1].max()) < 1e-4
+    assert float((got[2] != tile[2]).float().mean()) <= 0.02
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], _chunked_fwd(args, kw, chunk, cuda)[:3]))
+    g_img = torch.randn((3, 16, 64 * 16), generator=torch.Generator().manual_seed(chunk)).to(cuda)
+    grads = rasterize.rasterize_bwd(*args, g_img, got[1], got[2], **kw)
+    grads_p = rasterize.rasterize_bwd_plain(*args, g_img, got[1], got[2], **kw)
+    for j in range(9):
+        _close_to_scale(grads[j], grads_p[j], f"row {j}", 1e-4)
+
+
+def test_chunked_rasterize_skips_a_saturated_tile(cuda):
+    """One tile of 40 L entries whose pixels all stop within its first three:
+    its first chunk ends it, every later chunk taken leaves on the done flag
+    (the counters: 1 item walked, its others skipped, no pixel walked
+    again), and the outputs equal the plain version's."""
+    big_l = _preview_chunk(cuda)
+    args, kw = _chunked_args(cuda, [40 * big_l], 16, 16, saturated=(0,), seed=4)
+    got = _chunked_fwd(args, kw, big_l, cuda)
+    want = rasterize.rasterize_plain(*args, **kw)
+    items, skipped, rewalked = got[3]
+    assert items == 1 and 1 <= skipped <= 39 and rewalked == 0
+    assert int(got[2].max()) <= 3
+    torch.testing.assert_close(got[0], want[0], atol=1e-4, rtol=0)
+    assert torch.equal(got[2], want[2])
+
+
+def test_preview_render_takes_chunks_and_counts(cuda):
+    """A 160x120 render through the entry point: K4 launched once on the
+    chunked plan, its counters beside binning's in a traced request, and
+    the image within 1e-4 of the all-plain path's."""
+    g = _scene(7, 3000)
+    cam = Camera.from_dict({**example_camera(), "width": 160, "height": 120, "fx": 80.0,
+                            "fy": 80.0, "cx": 80.0, "cy": 60.0})
+    before = rasterize.rasterize_fwd.launches
+    tracer = trace.enable()
+    try:
+        with trace.request("test"):
+            img, _ = render(*(g[k] for k in KEYS), cam, max_patches=2**18, need_grads=False)
+        (root,) = tracer.named("test")
+    finally:
+        trace.disable()
+    assert rasterize.rasterize_fwd.launches - before == 1
+    assert rasterize.fwd_plan(80, rasterize.resident_ctas(cuda))["chunk"] > 0
+    assert root.counters["blend.items"] >= 80 and root.counters["blend.rewalked"] >= 0
+    img_p, _ = render(*(g[k] for k in KEYS), cam, max_patches=2**18, need_grads=False,
+                      backend="tiled")
+    torch.testing.assert_close(img, img_p, atol=1e-4, rtol=0)
+
+
+def test_k4_plan(cuda):
+    """The library's K4 plan: a chunked launch runs the resident CTAs with
+    state (the three counters, the ticket and a word a tile) and two slots a
+    tile of five planes of 64 float4; a CTA a tile runs a block a tile with
+    neither; chunks below 0 or past the kernel's 4,096 raise."""
+    slot = 2 * 5 * 64 * 4
+    assert rasterize.fwd_plan(80, 2640) == {"chunk": 128, "grid": 2640, "state_words": 84,
+                                            "slot_floats": 80 * slot}
+    assert rasterize.fwd_plan(80, 2640, chunk=4096) == {"chunk": 4096, "grid": 2640,
+                                                        "state_words": 84,
+                                                        "slot_floats": 80 * slot}
+    assert rasterize.fwd_plan(2170, 2640) == {"chunk": 0, "grid": 2170, "state_words": 0,
+                                              "slot_floats": 0}
+    assert rasterize.fwd_plan(80, 2640, chunk=0) == {"chunk": 0, "grid": 80, "state_words": 0,
+                                                     "slot_floats": 0}
+    for bad in (-1, 4097):
+        with pytest.raises(ValueError):
+            rasterize.fwd_plan(80, 2640, chunk=bad)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd", "fwd_split"])
 def test_rasterize_kernel_info(cuda, kernel):
     """Each blend kernel fits at least 8 blocks on an SM."""
     info = rasterize.kernel_info(kernel)

@@ -137,6 +137,48 @@ def test_wrapper_rejects(bad):
         rasterize.rasterize_fwd(table, gsid, start, cnt, width=W, height=H)
 
 
+def test_wrapper_counters_on_the_plain_version():
+    """On CPU tensors K4's counters say what the plain version does: every
+    tile one item, none left, no pixel walked again."""
+    f = stacked_tile(70)
+    t = {k: torch.from_numpy(v) for k, v in f.items()}
+    s = t["us"].shape[0]
+    table = preprocess.pack_table(t["us"], t["cinv2ds"], t["alphas"], t["colors"],
+                                  torch.zeros(s), torch.zeros((s, 2)))
+    counters = {}
+    got = rasterize.rasterize_fwd(table, t["patch_gsid"], t["tile_start"], t["tile_cnt"],
+                                  width=16, height=16, counters=counters)
+    want = rasterize.rasterize_plain(table, t["patch_gsid"], t["tile_start"], t["tile_cnt"],
+                                     width=16, height=16)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert list(counters) == list(rasterize.COUNTERS)
+    assert [int(v) for v in counters.values()] == [1, 0, 0]
+    assert all(v.dim() == 0 for v in counters.values())
+
+
+# (tiles, resident CTAs) -> K4's chunk length: a 160x120 preview (80 tiles),
+# the 640x480 frame (1,200), the bench's 979x546 (2,170), one tile, and the
+# edge where a tile gets two CTAs and where it gets one; on an H100's 1,584
+# resident CTAs the preview, the full frame, F2 and a viewer band of a
+# quarter of a preview (20 tiles), and no tile
+CHUNK_CASES = [((80, 1584), 224), ((80, 2640), 128), ((80, 4224), 96), ((1200, 2640), 2048),
+               ((1320, 2640), 2048), ((1321, 2640), 0), ((2170, 2640), 0), ((2170, 4224), 0),
+               ((1, 2640), 64), ((300, 2640), 512), ((0, 2640), 64), ((40, 100), 2048),
+               ((1200, 1584), 0), ((2170, 1584), 0), ((20, 1584), 64), ((792, 1584), 2048),
+               ((793, 1584), 0)]
+
+
+@pytest.mark.parametrize("tiles_resident,want", CHUNK_CASES)
+def test_k4_chunk_length_follows_the_tiles_and_the_card(tiles_resident, want):
+    """L = 0 (a CTA a tile) where a tile gets fewer than two resident CTAs,
+    else WAVE_DEPTH over its CTAs rounded up to CHUNK_ALIGN, at least
+    MIN_CHUNK and at most WAVE_DEPTH / 2."""
+    got = rasterize.chunk_length(*tiles_resident)
+    assert got == want
+    if got:
+        assert got % rasterize.CHUNK_ALIGN == 0
+        assert rasterize.MIN_CHUNK <= got <= rasterize.WAVE_DEPTH // 2
+
 
 # list lengths at and around the kernels' batch sizes (K5 stages 64 entries
 # a batch, K4 128) and the TPU kernel's 256-entry chunks

@@ -4,7 +4,7 @@ with their parents and requests, concurrent handler threads keep their
 request ids apart, tensor counters are read once when the request closes,
 and a served /render gives viewer.request > render > (render.wait,
 render.preprocess, render.binning, render.blend) and encode.launch, with
-binning's counters equal to a direct render's. ``gaussian_viewer --serve
+binning's counters equal to a direct render's and K4's beside them. ``gaussian_viewer --serve
 --trace PATH`` writes Chrome trace events and reports drops at exit."""
 
 import json
@@ -33,6 +33,7 @@ QUERY = "/render?az=0.7&el=0.3&w=64&h=48"
 RENDER_CHILDREN = {"render.wait", "render.preprocess", "render.binning", "render.blend"}
 BINNING = ("binning.patches", "binning.dropped", "binning.rows", "binning.rows_dropped",
            "binning.slots", "binning.kernel")
+BLEND = ("blend.items", "blend.items_skipped", "blend.rewalked")
 
 
 @pytest.fixture()
@@ -213,7 +214,9 @@ def test_served_render_spans_and_binning_counters(tracer, max_patches):
                     max_patches=max_patches, sh_degree=renderer.sh_degree, need_grads=False,
                     device="cpu")
     b = aux["binning"]
-    assert set(root.counters) == set(BINNING)
+    assert set(root.counters) == set(BINNING) | set(BLEND)
+    # the plain blend walks each of the view's 4 x 3 tiles as one item
+    assert [root.counters[k] for k in BLEND] == [12, 0, 0]
     assert root.counters["binning.patches"] == int(aux["n_patches"]) > 0
     assert root.counters["binning.slots"] == max_patches
     assert root.counters["binning.kernel"] == 0  # CPU tensors take the slot path
